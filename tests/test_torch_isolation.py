@@ -1,0 +1,107 @@
+"""The port stands alone: importing any of its modules loads no JAX, the
+blend wrapper counts only real kernel launches, and a request for anything
+but the CPU path either launches the CUDA kernel or raises."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from taichi_3d_gaussian_splatting_torch.ops import _build
+from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = [
+    "taichi_3d_gaussian_splatting_torch",
+    "taichi_3d_gaussian_splatting_torch.camera",
+    "taichi_3d_gaussian_splatting_torch.ops.gaussian",
+    "taichi_3d_gaussian_splatting_torch.ops.transforms",
+    "taichi_3d_gaussian_splatting_torch.ops.sh",
+    "taichi_3d_gaussian_splatting_torch.ops.projection",
+    "taichi_3d_gaussian_splatting_torch.ops.tiling",
+    "taichi_3d_gaussian_splatting_torch.ops._build",
+    "taichi_3d_gaussian_splatting_torch.ops.blend_cuda",
+    "taichi_3d_gaussian_splatting_torch.ops.rasterizer",
+    "taichi_3d_gaussian_splatting_torch.models.scene",
+    "taichi_3d_gaussian_splatting_torch.render",
+]
+
+
+def test_port_modules_import_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m.startswith('jaxlib') "
+        "or m.startswith('taichi_3d_gaussian_splatting_tpu') "
+        "or m in ('pandas', 'PIL', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "ok"
+
+
+def test_cpu_blend_does_not_count_launches():
+    BC.reset_launch_counts()
+    ranges = torch.tensor([0, 1], dtype=torch.int32)
+    slab = torch.zeros((16, 2))
+    slab[BC.ROW_LOGW] = -1.0
+    out = BC.blend_forward(slab, ranges, ranges + 1, num_tiles=2,
+                           tiles_per_row=2, rgb_only=False)
+    assert out[:, BC.OUT_ACC_ALPHA].max() > 0
+    assert BC.launch_counts == {"blend_forward_rgb": 0, "blend_forward": 0}
+
+
+def test_other_devices_raise_without_fallback():
+    """A tensor that is neither on the CPU nor on a card never reaches the
+    plain version: the wrapper raises."""
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="cpu or cuda"):
+        BC.blend_forward(torch.empty((16, 4), device=meta),
+                         torch.empty(2, dtype=torch.int32, device=meta),
+                         torch.empty(2, dtype=torch.int32, device=meta),
+                         num_tiles=2, tiles_per_row=2, rgb_only=True)
+    assert BC.launch_counts == {"blend_forward_rgb": 0, "blend_forward": 0}
+
+
+class _OnCuda:
+    """A CPU tensor that reports a CUDA device, so that the wrapper's CUDA
+    branch runs on a machine without a card."""
+    device = torch.device("cuda", 0)
+
+    def __init__(self, tensor):
+        self._tensor = tensor
+
+    def __getattr__(self, name):
+        return getattr(self._tensor, name)
+
+
+def test_cuda_launch_without_cuda_raises(monkeypatch):
+    """A CUDA input on a machine without the toolchain: the kernel build
+    raises out of the wrapper, nothing falls back to the plain version and
+    no launch is counted."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernel builds and launches")
+    with pytest.raises((RuntimeError, AssertionError)):
+        torch.empty(1, device="cuda")
+    monkeypatch.setattr(_build, "_library", None)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has a CUDA toolkit")
+    BC.reset_launch_counts()
+    ranges = _OnCuda(torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        BC.blend_forward(_OnCuda(torch.zeros((8, 4), dtype=torch.int32)),
+                         ranges, ranges, num_tiles=2, tiles_per_row=2,
+                         rgb_only=True)
+    assert BC.launch_counts == {"blend_forward_rgb": 0, "blend_forward": 0}
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_library()
