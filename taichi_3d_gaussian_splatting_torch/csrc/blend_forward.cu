@@ -2,7 +2,9 @@
 //
 // Replaces taichi_3d_gaussian_splatting_tpu/ops/blend_pallas.py::_forward_kernel
 // in both of its instances: blend_forward_rgb (RGB_ONLY, wide16 or packed8
-// slab) and blend_forward (full outputs, wide16 slab). Forward only.
+// slab) and blend_forward (full outputs, wide16 slab). Its backward is
+// blend_backward.cu, which replays this blend through the same alpha step
+// (blend_common.cuh::blend_alpha).
 //
 // Layout: one block of 256 threads per 16x16 tile, one thread per pixel
 // (p = v_in * 16 + u_in, centre + 0.5). The tile's depth-sorted keys
@@ -27,24 +29,14 @@
 // No fast math: the 1/255 skip gate and the 1e-4 saturation stop are
 // threshold compares, and an approximate exp would flip keys at the edge.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kTileWidth = 16;
-constexpr int kTileHeight = 16;
-constexpr int kPixels = kTileWidth * kTileHeight;  // threads per block
-constexpr int kBatch = kPixels;                    // keys staged per batch
-constexpr int kOutRows = 8;
-constexpr float kAlphaSkip = 1.0f / 255.0f;
-constexpr float kAlphaClamp = 0.99f;
-constexpr float kSaturation = 1e-4f;
+using namespace t3dgs;
 
-// wide16 slab rows (blend_cuda.py ROW_*)
-constexpr int kRowU = 0, kRowV = 1, kRowA = 2, kRowB = 3, kRowC = 4,
-              kRowLogw = 5, kRowR = 8, kRowG = 9, kRowBCol = 10,
-              kRowDepth = 11;
+constexpr int kBatch = kPixels;  // keys staged per batch
+constexpr int kOutRows = 8;
 
 struct KeyBatch {
   float u[kBatch], v[kBatch], a[kBatch], b[kBatch], c[kBatch], logw[kBatch];
@@ -94,12 +86,8 @@ blend_forward_kernel(const void* __restrict__ data,
   __shared__ KeyBatch s;
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const float px =
-      static_cast<float>((t % tiles_per_row) * kTileWidth + p % kTileWidth) +
-      0.5f;
-  const float py =
-      static_cast<float>((t / tiles_per_row) * kTileHeight + p / kTileWidth) +
-      0.5f;
+  const float px = pixel_x(t, p, tiles_per_row);
+  const float py = pixel_y(t, p, tiles_per_row);
   // clamped into [0, mk]: a malformed range reads no memory outside the
   // slab (the wrapper cannot check the values without a host sync)
   const int start = max(tile_starts[t], 0);
@@ -125,18 +113,14 @@ blend_forward_kernel(const void* __restrict__ data,
     __syncthreads();
     if (done) continue;
     for (int j = 0; j < n; ++j) {
-      const float dx = px - s.u[j];
-      const float dy = py - s.v[j];
-      float alpha = expf(-0.5f * (s.a[j] * dx * dx + s.c[j] * dy * dy) -
-                         s.b[j] * dx * dy + s.logw[j]);
-      if (alpha < kAlphaSkip) continue;
-      alpha = fminf(alpha, kAlphaClamp);
-      const float t_next = T * (1.0f - alpha);
-      if (t_next < kSaturation) {  // the saturating key does not contribute
+      const BlendAlpha st = blend_alpha(px, py, s.u[j], s.v[j], s.a[j], s.b[j],
+                                        s.c[j], s.logw[j], T);
+      if (st.kind == kSkip) continue;
+      if (st.kind == kSaturate) {  // the saturating key does not contribute
         done = true;
         break;
       }
-      const float w = alpha * T;
+      const float w = st.alpha * T;
       acc_r += w * s.r[j];
       acc_g += w * s.g[j];
       acc_b += w * s.bl[j];
@@ -146,7 +130,7 @@ blend_forward_kernel(const void* __restrict__ data,
         last = batch + j + 1;
         ++count;
       }
-      T = t_next;
+      T = st.t_next;
     }
   }
 
@@ -176,7 +160,7 @@ extern "C" int t3dgs_blend_forward(const void* data, const void* tile_starts,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>(num_tiles));
-  const dim3 block(kPixels);
+  const dim3 block(t3dgs::kPixels);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* starts = static_cast<const int*>(tile_starts);
   const int* ends = static_cast<const int*>(tile_ends);

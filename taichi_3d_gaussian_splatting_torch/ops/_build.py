@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-The sources in ``csrc/*.cu`` have a plain C interface. At first use they
-are compiled by ``nvcc`` for sm_90a into one shared library whose file name
-carries the hash of the sources and flags, under ``csrc/build/`` (listed in
+The sources in ``csrc/*.cu`` have a plain C interface. At first use each
+is compiled by its own ``nvcc`` for sm_90a, all at once, and the objects
+are linked into one shared library whose file name carries the hash of the
+sources (headers included) and flags, under ``csrc/build/`` (listed in
 ``.gitignore``), and loaded with ``ctypes``. A second call in the same
 process, or a later process with unchanged sources, reuses the library.
 """
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _library = None
 # what ptxas reported (registers, shared memory, spills) for the last build
@@ -50,7 +51,45 @@ def _declare(lib):
     # packed8, rgb_only, stream
     fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
     fn.restype = i
+    fn = lib.t3dgs_blend_backward
+    # data, tile_starts, tile_ends, pixel_in, grad, mag, mk, num_tiles,
+    # tiles_per_row, stream
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    fn.restype = i
     return lib
+
+
+def _compile(nvcc, sources, lib_path):
+    """One nvcc per source, all started together, then one link; returns
+    the compilers' output (ptxas -v). Raises on any failure."""
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources:
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        # link under a temporary name and rename: a concurrent process
+        # never loads a half-written library
+        tmp_lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp_lib, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp_lib, lib_path)
+    return "".join(log)
 
 
 def load_library():
@@ -60,24 +99,13 @@ def load_library():
         return _library
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(sources + list(CSRC_DIR.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libt3dgs_kernels_{digest.hexdigest()[:16]}.so"
     if not lib_path.is_file():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a temporary name and rename: a concurrent process
-        # never loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        build_log = proc.stdout + proc.stderr
-        os.replace(tmp, lib_path)
+        build_log = _compile(nvcc, sources, lib_path)
     _library = _declare(ctypes.CDLL(str(lib_path)))
     return _library

@@ -1,5 +1,5 @@
-"""Per-tile front-to-back alpha blend: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Per-tile front-to-back alpha blend and its backward: the CUDA kernels'
+wrappers and their plain PyTorch versions.
 
 The kernel (``csrc/blend_forward.cu``) gives each 16x16 tile one block of
 256 threads, one thread per pixel (pixel p = v_in * 16 + u_in, centre
@@ -19,8 +19,13 @@ depth, last and count rows are 0. ``depth`` is sum(w d) / max(sum w, 1e-6);
 ``last`` is the slab column of the last contributing key and ``count`` the
 number of contributing keys.
 
-``blend_forward`` runs the kernel on a CUDA tensor and the plain version
-on a CPU tensor; any other device raises. There is no fallback.
+The backward (``csrc/blend_backward.cu``, ``blend_backward``) replays the
+same blend per pixel and returns per key the gradient slab rows ``GROW_*``
+and per pixel the sums of |gx| and |gy| (see ``blend_backward_torch``).
+
+``blend_forward`` and ``blend_backward`` run their kernel on CUDA tensors
+and the plain version on CPU tensors; any other device raises. There is no
+fallback.
 """
 
 from __future__ import annotations
@@ -57,9 +62,26 @@ TRANSMITTANCE_SATURATION = 1e-4
 (OUT_R, OUT_G, OUT_B, OUT_DEPTH, OUT_ACC_ALPHA, OUT_NORM, OUT_LAST_EFF,
  OUT_COUNT) = range(8)
 
-# Kernel launches per variant, counted by `blend_forward` only when it
-# launches the CUDA kernel (never for the plain version).
-launch_counts = {"blend_forward_rgb": 0, "blend_forward": 0}
+# Rows of the backward's (16, MK) per-key gradient slab (rows 6, 7 and
+# 13..15 stay 0)
+GROW_DU = 0
+GROW_DV = 1
+GROW_DA = 2
+GROW_DB = 3
+GROW_DC = 4
+GROW_DLOGW = 5
+GROW_DR = 8
+GROW_DG = 9
+GROW_DB_COL = 10
+GROW_MAG_UV = 11       # sum over pixels of |(gx, gy)|
+GROW_NUM_PIXELS = 12   # number of pixels the key contributed to
+GRAD_ROWS = (GROW_DU, GROW_DV, GROW_DA, GROW_DB, GROW_DC, GROW_DLOGW,
+             GROW_DR, GROW_DG, GROW_DB_COL, GROW_MAG_UV, GROW_NUM_PIXELS)
+
+# Kernel launches per kernel (the forward per variant), counted by the
+# wrappers only when they launch a CUDA kernel (never for a plain version).
+launch_counts = {"blend_forward_rgb": 0, "blend_forward": 0,
+                 "blend_backward": 0}
 
 
 def reset_launch_counts():
@@ -82,6 +104,17 @@ def _slab_columns(point_data):
                    (bd << 16).view(torch.float32))
 
 
+def _pixel_centres(num_tiles, tiles_per_row, device):
+    """(num_tiles, 256) f32 x and y of every tile pixel's centre."""
+    t_idx = torch.arange(num_tiles, device=device)
+    p_idx = torch.arange(PIXELS_PER_TILE, device=device)
+    px = ((t_idx % tiles_per_row) * TILE_WIDTH)[:, None] + (
+        p_idx % TILE_WIDTH)[None, :] + 0.5
+    py = ((t_idx // tiles_per_row) * TILE_HEIGHT)[:, None] + (
+        p_idx // TILE_WIDTH)[None, :] + 0.5
+    return px.to(torch.float32), py.to(torch.float32)
+
+
 def blend_forward_torch(point_data, tile_starts, tile_ends, *,
                         num_tiles, tiles_per_row, rgb_only):
     """Plain PyTorch version of the blend kernel, same inputs and output.
@@ -93,13 +126,7 @@ def blend_forward_torch(point_data, tile_starts, tile_ends, *,
     u, v, ca, cb, cc, logw, cr, cg, cbc, dep = _slab_columns(point_data)
     starts = tile_starts.long()
     seg_len = (tile_ends - tile_starts).long()
-    t_idx = torch.arange(num_tiles, device=device)
-    p_idx = torch.arange(PIXELS_PER_TILE, device=device)
-    px = ((t_idx % tiles_per_row) * TILE_WIDTH)[:, None] + (
-        p_idx % TILE_WIDTH)[None, :] + 0.5
-    py = ((t_idx // tiles_per_row) * TILE_HEIGHT)[:, None] + (
-        p_idx // TILE_WIDTH)[None, :] + 0.5
-    px, py = px.to(torch.float32), py.to(torch.float32)
+    px, py = _pixel_centres(num_tiles, tiles_per_row, device)
 
     shape = (num_tiles, PIXELS_PER_TILE)
     T = torch.ones(shape, dtype=torch.float32, device=device)
@@ -211,3 +238,139 @@ def blend_forward(point_data, tile_starts, tile_ends, *,
                            f"{err}")
     launch_counts["blend_forward_rgb" if rgb_only else "blend_forward"] += 1
     return out
+
+
+def blend_backward_torch(point_data, tile_starts, tile_ends, pixel_in, *,
+                         num_tiles, tiles_per_row):
+    """Plain PyTorch version of the backward kernel, same inputs and outputs.
+
+    Replays the forward per pixel (vectorised over all (num_tiles, 256)
+    pixels, one Python iteration per key position of the longest segment)
+    and takes, for each key i a pixel's blend reached:
+      dL/dalpha_i = c_i.g T_i - (S - P_i) / (1 - alpha_i), with S = g.C and
+      P_i = sum_{j<=i} w_j c_j.g;
+      G = dL/dalpha_i * exp(exponent): straight through the 0.99 clamp; 0
+      for skipped, saturating and later keys.
+    Written out by hand: autograd through `blend_forward_torch` would zero
+    the gradient of a clamped alpha instead of passing it through.
+
+    Returns (grad_data (16, MK) f32 with rows GROW_*, each a sum over the
+    tile's pixels, and (num_tiles, 8, 256) f32 with rows [sum |gx|,
+    sum |gy|, 0, ...])."""
+    device = point_data.device
+    u, v, ca, cb, cc, logw, cr, cg, cbc, _ = _slab_columns(point_data)
+    starts = tile_starts.long()
+    seg_len = (tile_ends - tile_starts).long()
+    px, py = _pixel_centres(num_tiles, tiles_per_row, device)
+    g_r, g_g, g_b = pixel_in[:, 0], pixel_in[:, 1], pixel_in[:, 2]
+    S = g_r * pixel_in[:, 3] + g_g * pixel_in[:, 4] + g_b * pixel_in[:, 5]
+
+    shape = (num_tiles, PIXELS_PER_TILE)
+    T = torch.ones(shape, dtype=torch.float32, device=device)
+    done = torch.zeros(shape, dtype=torch.bool, device=device)
+    prefix = torch.zeros(shape, dtype=torch.float32, device=device)
+    mag = torch.zeros((2,) + shape, dtype=torch.float32, device=device)
+    grad = torch.zeros((NUM_DATA_ROWS, point_data.shape[1]),
+                       dtype=torch.float32, device=device)
+    rows = torch.tensor(GRAD_ROWS, device=device)
+    zero = torch.zeros(shape, dtype=torch.float32, device=device)
+    max_len = int(seg_len.max()) if num_tiles else 0
+    for j in range(max_len):
+        in_seg = j < seg_len
+        k = torch.where(in_seg, starts + j, torch.zeros_like(starts))
+
+        def col(x):
+            return x[k][:, None]
+
+        dx = px - col(u)
+        dy = py - col(v)
+        alpha_exp = torch.exp(-0.5 * (col(ca) * dx * dx + col(cc) * dy * dy)
+                              - col(cb) * dx * dy + col(logw))
+        live = in_seg[:, None] & ~done & (alpha_exp >= ALPHA_SKIP_THRESHOLD)
+        alpha = torch.clamp(alpha_exp, max=ALPHA_CLAMP)
+        t_next = T * (1.0 - alpha)
+        saturates = live & (t_next < TRANSMITTANCE_SATURATION)
+        contrib = live & ~saturates
+        done = done | saturates
+        cg_px = col(cr) * g_r + col(cg) * g_g + col(cbc) * g_b
+        w = torch.where(contrib, alpha * T, zero)
+        prefix = prefix + cg_px * w
+        G = torch.where(contrib, (cg_px * T - (S - prefix) / (1.0 - alpha))
+                        * alpha_exp, zero)
+        gx = G * (col(ca) * dx + col(cb) * dy)
+        gy = G * (col(cc) * dy + col(cb) * dx)
+        per_pixel = torch.stack([
+            gx, gy, -0.5 * G * dx * dx, -G * dx * dy, -0.5 * G * dy * dy, G,
+            g_r * w, g_g * w, g_b * w, torch.sqrt(gx * gx + gy * gy),
+            contrib.to(torch.float32)])                  # (11, T, 256)
+        sums = per_pixel.sum(dim=2)                      # (11, T)
+        grad[rows[:, None], k[in_seg][None, :]] = sums[:, in_seg]
+        mag = mag + torch.stack([gx.abs(), gy.abs()])
+        T = torch.where(contrib, t_next, T)
+
+    mag_image = torch.zeros((num_tiles, 8, PIXELS_PER_TILE),
+                            dtype=torch.float32, device=device)
+    mag_image[:, 0:2] = mag.permute(1, 0, 2)
+    return grad, mag_image
+
+
+def _check_backward_inputs(point_data, tile_starts, tile_ends, pixel_in,
+                           num_tiles):
+    if point_data.dim() != 2 or point_data.shape[0] != NUM_DATA_ROWS \
+            or point_data.dtype != torch.float32:
+        raise ValueError(f"the backward takes the ({NUM_DATA_ROWS}, MK) f32 "
+                         f"wide16 slab, got {point_data.dtype} "
+                         f"{tuple(point_data.shape)}")
+    _check_inputs(point_data, tile_starts, tile_ends, num_tiles, False)
+    if (pixel_in.dtype != torch.float32
+            or tuple(pixel_in.shape) != (num_tiles, 8, PIXELS_PER_TILE)):
+        raise ValueError(f"pixel_in must be f32 of shape ({num_tiles}, 8, "
+                         f"{PIXELS_PER_TILE}), got {pixel_in.dtype} "
+                         f"{tuple(pixel_in.shape)}")
+    if pixel_in.device != point_data.device:
+        raise ValueError(f"pixel_in is on {pixel_in.device}, point_data on "
+                         f"{point_data.device}")
+    if not pixel_in.is_contiguous():
+        raise ValueError("pixel_in must be contiguous")
+
+
+def blend_backward(point_data, tile_starts, tile_ends, pixel_in, *,
+                   num_tiles, tiles_per_row):
+    """Backward of the full blend. point_data: the (16, MK) f32 wide16 slab
+    the forward blended; tile_starts/ends: (num_tiles,) int32; pixel_in:
+    (num_tiles, 8, 256) f32 with rows [g_r, g_g, g_b, C_r, C_g, C_b, 0, 0]
+    (image cotangent, forward colour); all contiguous.
+
+    Returns (grad_data (16, MK) f32, GROW_* rows; mag_image (num_tiles, 8,
+    256) f32, rows [sum |gx|, sum |gy|, 0, ...]).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel;
+    any other device raises."""
+    _check_backward_inputs(point_data, tile_starts, tile_ends, pixel_in,
+                           num_tiles)
+    device = point_data.device
+    if device.type == "cpu":
+        return blend_backward_torch(point_data, tile_starts, tile_ends,
+                                    pixel_in, num_tiles=num_tiles,
+                                    tiles_per_row=tiles_per_row)
+    if device.type != "cuda":
+        raise RuntimeError(f"blend_backward runs on cpu or cuda tensors, "
+                           f"got {device}")
+    from ._build import load_library
+    lib = load_library()
+    grad = torch.zeros((NUM_DATA_ROWS, point_data.shape[1]),
+                       dtype=torch.float32, device=device)
+    mag = torch.empty((num_tiles, 8, PIXELS_PER_TILE), dtype=torch.float32,
+                      device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.t3dgs_blend_backward(
+            point_data.data_ptr(), tile_starts.data_ptr(),
+            tile_ends.data_ptr(), pixel_in.data_ptr(), grad.data_ptr(),
+            mag.data_ptr(), point_data.shape[1], num_tiles, tiles_per_row,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"blend_backward kernel launch failed: CUDA error "
+                           f"{err}")
+    launch_counts["blend_backward"] += 1
+    return grad, mag

@@ -8,16 +8,23 @@ Steps of `rasterize`:
      its plain version on the CPU);
   5. the tile-to-image layout (`_tiles_to_image`).
 
-This is the forward render only. Gradients through the blend (the
-backward kernel and the per-point gradient routing) are not ported yet, so
-`rasterize` refuses inputs that require grad rather than return wrong
-gradients.
+Differentiation (the JAX package's contract): `rasterize` with
+`rgb_only=False` is differentiable with respect to the point positions and
+all 56 features through a `torch.autograd.Function` around the blend, whose
+backward is the backward kernel (ops/blend_cuda.py blend_backward) plus the
+per-point routing `_route_to_points`; torch autograd carries the
+gradient through the projection. Only the colour rows of the blend carry a
+gradient: depth, count and the accumulated alpha come back detached, and
+the density rescale is a constant. The rgb_only render is inference only:
+its image carries no gradient. `rasterize_with_vjp` returns the forward
+and an explicit `vjp_fn` that also yields the densification statistics
+(`BackwardStats`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -86,6 +93,16 @@ class RasterizeResult(NamedTuple):
     aux: RasterizerAux
 
 
+class BackwardStats(NamedTuple):
+    """Per-point statistics of one backward pass, for the density
+    controller (N-sized, zeros for points that emitted no key)."""
+    grad_viewspace: torch.Tensor              # (N, 2) sum of dL/d(u, v)
+    magnitude_grad_viewspace: torch.Tensor    # (N,) sum over pixels of
+    #   |(gx, gy)|
+    num_affected_pixels: torch.Tensor         # (N,) int32
+    magnitude_grad_viewspace_on_image: torch.Tensor  # (H, W, 2)
+
+
 class TileGrid(NamedTuple):
     """Static view of the tile layout."""
     height: int
@@ -143,10 +160,16 @@ def _blend_inputs_from_attrs(attrs):
     return cols, attrs.depth.detach()
 
 
+def _no_mark(stage: str):
+    pass
+
+
 def _project_and_bin(pointcloud, pointcloud_features, point_invalid_mask,
                      point_object_id, q_pointcloud_camera,
                      t_pointcloud_camera, camera_info, config, color_sh_mask,
-                     object_edit=None, slab_format="wide16"):
+                     object_edit=None, slab_format="wide16", mark=_no_mark):
+    """Projection, then binning; `mark(stage)` is called after each (a
+    timing hook, see `rasterize_with_vjp`)."""
     q_cam, t_cam = inverse_SE3_qt(q_pointcloud_camera, t_pointcloud_camera)
     attrs = compute_point_attributes(
         pointcloud, pointcloud_features, point_invalid_mask, point_object_id,
@@ -154,17 +177,20 @@ def _project_and_bin(pointcloud, pointcloud_features, point_invalid_mask,
         config.near_plane, config.far_plane, color_sh_mask,
         object_edit=object_edit)
     cols, depth = _blend_inputs_from_attrs(attrs)
+    mark("projection")
     binning = bin_points_to_tiles(
         attrs.u, attrs.v, attrs.depth, attrs.radius_x, attrs.radius_y,
         attrs.emit, camera_info,
         depth_to_sort_key_scale=config.depth_to_sort_key_scale,
         attr_cols=cols + (depth,), slab_format=slab_format)
+    mark("binning")
     return attrs, cols, depth, binning
 
 
 def _result_from_tile_out(tile_out, attrs, binning, camera_info):
     grid = TileGrid.from_camera(camera_info)
     pix = _tiles_to_image(tile_out, grid)  # (H, W, 8)
+    side = pix.detach()                    # only the image carries gradient
     aux = RasterizerAux(
         in_frustum=attrs.in_frustum,
         point_uv=attrs.uv.detach(),
@@ -175,13 +201,76 @@ def _result_from_tile_out(tile_out, attrs, binning, camera_info):
         key_overflow=binning.key_overflow,
         big_point_overflow=binning.big_point_overflow,
         tile_cap_overflow=binning.tile_cap_overflow,
-        pixel_accumulated_alpha=pix[:, :, BC.OUT_ACC_ALPHA],
+        pixel_accumulated_alpha=side[:, :, BC.OUT_ACC_ALPHA],
         nonfinite_points=attrs.nonfinite_points,
     )
     return RasterizeResult(
-        image=pix[:, :, 0:3], depth=pix[:, :, BC.OUT_DEPTH],
-        pixel_valid_point_count=pix[:, :, BC.OUT_COUNT].to(torch.int32),
+        image=pix[:, :, 0:3], depth=side[:, :, BC.OUT_DEPTH],
+        pixel_valid_point_count=side[:, :, BC.OUT_COUNT].to(torch.int32),
         aux=aux)
+
+
+def _backward_blend(tile_out, g_image, binning, grid: TileGrid):
+    """The backward kernel on the image cotangent: (per-key gradient slab
+    (16, MK), per-pixel magnitude tiles (T, 8, 256))."""
+    g_tiles = _image_to_tiles(g_image.to(torch.float32), grid)  # (T, 3, 256)
+    pixel_in = torch.cat([g_tiles, tile_out[:, 0:3].detach(),
+                          torch.zeros_like(g_tiles[:, 0:2])],
+                         dim=1).contiguous()                    # (T, 8, 256)
+    return BC.blend_backward(
+        binning.point_data, binning.tile_starts, binning.tile_ends, pixel_in,
+        num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row)
+
+
+def _route_to_points(grad_data, mag_tiles, binning, grid: TileGrid, n: int):
+    """Per-key gradients -> per point. Every slab column belongs to one
+    point (`binning.sorted_point_idx`), so one `index_add_` sums a point's
+    keys; it replaces the JAX package's sort by point id and segmented
+    scan. Returns the 9 per-point cotangents of the blend's input columns
+    (u, v, a, b, c, logw, r, g, b) and the BackwardStats."""
+    rows = list(BC.GRAD_ROWS)
+    per_point = torch.zeros((len(rows), n), dtype=torch.float32,
+                            device=grad_data.device)
+    per_point.index_add_(1, binning.sorted_point_idx.long(), grad_data[rows])
+    row_of = {r: i for i, r in enumerate(rows)}
+    cotangents = tuple(per_point[row_of[r]] for r in BC.GRAD_ROWS[:9])
+    stats = BackwardStats(
+        grad_viewspace=torch.stack([per_point[row_of[BC.GROW_DU]],
+                                    per_point[row_of[BC.GROW_DV]]], dim=-1),
+        magnitude_grad_viewspace=per_point[row_of[BC.GROW_MAG_UV]],
+        num_affected_pixels=per_point[row_of[BC.GROW_NUM_PIXELS]].to(
+            torch.int32),
+        magnitude_grad_viewspace_on_image=_tiles_to_image(
+            mag_tiles, grid)[:, :, 0:2],
+    )
+    return cotangents, stats
+
+
+class _Blend(torch.autograd.Function):
+    """The full blend (forward kernel K2) as an autograd node: its primal
+    reads the slab gathered from `cols` inside the binning, and its
+    backward returns the cotangents of the 9 `cols` through the backward
+    kernel. Only the colour rows of the output carry gradient."""
+
+    @staticmethod
+    def forward(ctx, binning, grid, n, *cols):
+        tile_out = BC.blend_forward(
+            binning.point_data, binning.tile_starts, binning.tile_ends,
+            num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row,
+            rgb_only=False)
+        ctx.binning, ctx.grid, ctx.n = binning, grid, n
+        ctx.save_for_backward(tile_out)
+        return tile_out
+
+    @staticmethod
+    def backward(ctx, g_tile_out):
+        tile_out, = ctx.saved_tensors
+        g_image = _tiles_to_image(g_tile_out[:, 0:3], ctx.grid)
+        grad_data, mag_tiles = _backward_blend(tile_out, g_image,
+                                               ctx.binning, ctx.grid)
+        cotangents, _ = _route_to_points(grad_data, mag_tiles, ctx.binning,
+                                         ctx.grid, ctx.n)
+        return (None, None, None) + cotangents
 
 
 def rasterize(
@@ -201,27 +290,76 @@ def rasterize(
 
     With `config.rgb_only` the blend skips depth, count and last-key
     bookkeeping (those outputs are zeros) and reads the slab of
-    `config.slab_format`; otherwise it returns depth and count too, from the
-    exact wide16 slab. Forward only: raises NotImplementedError when an
-    input requires grad."""
+    `config.slab_format`; the image then carries no gradient. Otherwise it
+    returns depth and count too, from the exact wide16 slab, and the image
+    is differentiable with respect to `pointcloud` and
+    `pointcloud_features`."""
     camera_info.validate()
-    if torch.is_grad_enabled() and (pointcloud.requires_grad
-                                    or pointcloud_features.requires_grad):
-        raise NotImplementedError(
-            "rasterize is forward-only in taichi_3d_gaussian_splatting_torch:"
-            " the blend's backward kernel and gradient routing belong to the"
-            " training step (slice 2 in ROADMAP.md) and are not ported yet;"
-            " call it under torch.no_grad() or on tensors that do not "
-            "require grad")
     slab_format = (_resolve_slab_format(config) if config.rgb_only
                    else "wide16")
-    attrs, _, _, binning = _project_and_bin(
+    attrs, cols, _, binning = _project_and_bin(
         pointcloud, pointcloud_features, point_invalid_mask, point_object_id,
         q_pointcloud_camera, t_pointcloud_camera, camera_info, config,
         color_sh_mask, object_edit=object_edit, slab_format=slab_format)
     grid = TileGrid.from_camera(camera_info)
+    if config.rgb_only:
+        tile_out = BC.blend_forward(
+            binning.point_data, binning.tile_starts, binning.tile_ends,
+            num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row,
+            rgb_only=True)
+    else:
+        tile_out = _Blend.apply(binning, grid, pointcloud.shape[0], *cols)
+    return _result_from_tile_out(tile_out, attrs, binning, camera_info)
+
+
+def rasterize_with_vjp(
+    pointcloud, pointcloud_features, point_invalid_mask, point_object_id,
+    q_pointcloud_camera, t_pointcloud_camera, camera_info, config,
+    color_sh_mask=None, mark=_no_mark,
+) -> Tuple[RasterizeResult, Callable]:
+    """Like `rasterize` (always the full, rgb_only=False, forward), but also
+    returns `vjp_fn(g_image) -> (grad_pointcloud, grad_pointcloud_features,
+    BackwardStats)`, to be called once.
+
+    The gradients are raw: the caller applies any per-group scaling or SH
+    band masking. The result's tensors carry no autograd graph.
+
+    `mark(stage)` is called after each stage ("projection", "binning",
+    "forward blend"; in vjp_fn "backward blend", "routing", "projection
+    backward"), so that a caller can time them on the device."""
+    camera_info.validate()
+    if config.rgb_only:
+        config = dataclasses.replace(config, rgb_only=False)
+    n = pointcloud.shape[0]
+    pc = pointcloud.detach().requires_grad_(True)
+    feats = pointcloud_features.detach().requires_grad_(True)
+    with torch.enable_grad():
+        attrs, cols, _, binning = _project_and_bin(
+            pc, feats, point_invalid_mask, point_object_id,
+            q_pointcloud_camera, t_pointcloud_camera, camera_info, config,
+            color_sh_mask, mark=mark)
+    grid = TileGrid.from_camera(camera_info)
     tile_out = BC.blend_forward(
         binning.point_data, binning.tile_starts, binning.tile_ends,
         num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row,
-        rgb_only=config.rgb_only)
-    return _result_from_tile_out(tile_out, attrs, binning, camera_info)
+        rgb_only=False)
+    result = _result_from_tile_out(tile_out, attrs, binning, camera_info)
+    mark("forward blend")
+
+    def vjp_fn(g_image):
+        grad_data, mag_tiles = _backward_blend(tile_out, g_image, binning,
+                                               grid)
+        mark("backward blend")
+        cotangents, stats = _route_to_points(grad_data, mag_tiles, binning,
+                                             grid, n)
+        mark("routing")
+        grad_pc, grad_feats = torch.autograd.grad(
+            cols, (pc, feats), cotangents, allow_unused=True)
+        if grad_pc is None:
+            grad_pc = torch.zeros_like(pc)
+        if grad_feats is None:
+            grad_feats = torch.zeros_like(feats)
+        mark("projection backward")
+        return grad_pc, grad_feats, stats
+
+    return result, vjp_fn

@@ -1,4 +1,6 @@
-"""The CUDA blend kernel against its plain PyTorch version on the card.
+"""The CUDA blend kernels (forward and backward) against their plain
+PyTorch versions on the card, and one training step on the card against
+the same step on the CPU.
 
 Marked `cuda`: skips without a card. Run on a machine with an H100 as
 
@@ -22,6 +24,7 @@ from taichi_3d_gaussian_splatting_torch.ops.tiling import blend_slab
 from torch_port_fixtures import (AB_CASES, ATOL, RTOL, assert_counts_close,
                                  camera_intrinsics, identity_pose,
                                  random_scene)
+from torch_train_fixtures import one_step_state, write_dataset
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +94,45 @@ def test_no_keys_on_card(cuda):
                            num_tiles=6, tiles_per_row=3, rgb_only=True)
     torch.cuda.synchronize()
     assert not out.any()
+
+
+@pytest.mark.parametrize("seed, alpha, label, cfg", AB_CASES,
+                         ids=[c[2] for c in AB_CASES])
+def test_backward_kernel_matches_plain(cuda, seed, alpha, label, cfg):
+    """Every GROW_* row and the magnitude image at rtol 2e-3 / atol 1e-4,
+    the pixel count statistically; the image cotangent is seeded and the
+    colour is the forward kernel's own."""
+    cam, b, slabs, _ = _inputs(seed, alpha, cfg, cuda)
+    kw = dict(num_tiles=cam.num_tiles, tiles_per_row=cam.tiles_per_row)
+    fwd = BC.blend_forward(slabs["wide16"], b.tile_starts, b.tile_ends,
+                           rgb_only=False, **kw)
+    rng = np.random.default_rng(seed)
+    pixel_in = torch.zeros((cam.num_tiles, 8, 256), device=cuda)
+    pixel_in[:, 0:3] = torch.as_tensor(
+        rng.normal(size=(cam.num_tiles, 3, 256)).astype(np.float32),
+        device=cuda)
+    pixel_in[:, 3:6] = fwd[:, 0:3]
+    args = (slabs["wide16"], b.tile_starts, b.tile_ends, pixel_in)
+    before = BC.launch_counts["blend_backward"]
+    got = [x.cpu().numpy() for x in BC.blend_backward(*args, **kw)]
+    torch.cuda.synchronize()
+    assert BC.launch_counts["blend_backward"] == before + 1
+    ref = [x.cpu().numpy() for x in BC.blend_backward_torch(*args, **kw)]
+    float_rows = [r for r in BC.GRAD_ROWS if r != BC.GROW_NUM_PIXELS]
+    np.testing.assert_allclose(got[0][float_rows], ref[0][float_rows],
+                               rtol=RTOL, atol=ATOL)
+    assert_counts_close(ref[0][BC.GROW_NUM_PIXELS], got[0][BC.GROW_NUM_PIXELS])
+    np.testing.assert_allclose(got[1], ref[1], rtol=RTOL, atol=ATOL)
+
+
+def test_training_step_on_card_matches_cpu(cuda, tmp_path):
+    """One trainer step from one state on the card and on the CPU: the
+    loss to 1e-4 relative, every state array at rtol 2e-3 / atol 1e-4."""
+    write_dataset(str(tmp_path))
+    loss_gpu, gpu = one_step_state(str(tmp_path), "cuda")
+    loss_cpu, cpu = one_step_state(str(tmp_path), "cpu")
+    assert abs(loss_gpu - loss_cpu) < 1e-4 * abs(loss_cpu)
+    assert gpu.keys() == cpu.keys()
+    for k in cpu:
+        np.testing.assert_allclose(gpu[k], cpu[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=k)

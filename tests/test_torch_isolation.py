@@ -12,6 +12,8 @@ import torch
 from taichi_3d_gaussian_splatting_torch.ops import _build
 from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
 
+NO_LAUNCHES = {"blend_forward_rgb": 0, "blend_forward": 0,
+               "blend_backward": 0}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch",
@@ -26,6 +28,16 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.ops.rasterizer",
     "taichi_3d_gaussian_splatting_torch.models.scene",
     "taichi_3d_gaussian_splatting_torch.render",
+    "taichi_3d_gaussian_splatting_torch.config",
+    "taichi_3d_gaussian_splatting_torch.data.dataset",
+    "taichi_3d_gaussian_splatting_torch.utils.visualization",
+    "taichi_3d_gaussian_splatting_torch.training.adam",
+    "taichi_3d_gaussian_splatting_torch.training.ssim",
+    "taichi_3d_gaussian_splatting_torch.training.loss",
+    "taichi_3d_gaussian_splatting_torch.training.controller",
+    "taichi_3d_gaussian_splatting_torch.training.checkpoint",
+    "taichi_3d_gaussian_splatting_torch.training.trainer",
+    "taichi_3d_gaussian_splatting_torch.train",
 ]
 
 
@@ -37,7 +49,7 @@ def test_port_modules_import_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m.startswith('taichi_3d_gaussian_splatting_tpu') "
-        "or m in ('pandas', 'PIL', 'triton'))\n"
+        "or m in ('pandas', 'PIL', 'triton', 'yaml', 'optax'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -55,7 +67,7 @@ def test_cpu_blend_does_not_count_launches():
     out = BC.blend_forward(slab, ranges, ranges + 1, num_tiles=2,
                            tiles_per_row=2, rgb_only=False)
     assert out[:, BC.OUT_ACC_ALPHA].max() > 0
-    assert BC.launch_counts == {"blend_forward_rgb": 0, "blend_forward": 0}
+    assert BC.launch_counts == NO_LAUNCHES
 
 
 def test_other_devices_raise_without_fallback():
@@ -67,7 +79,18 @@ def test_other_devices_raise_without_fallback():
                          torch.empty(2, dtype=torch.int32, device=meta),
                          torch.empty(2, dtype=torch.int32, device=meta),
                          num_tiles=2, tiles_per_row=2, rgb_only=True)
-    assert BC.launch_counts == {"blend_forward_rgb": 0, "blend_forward": 0}
+    assert BC.launch_counts == NO_LAUNCHES
+
+
+def test_backward_on_other_devices_raises():
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="cpu or cuda"):
+        BC.blend_backward(torch.empty((16, 4), device=meta),
+                          torch.empty(2, dtype=torch.int32, device=meta),
+                          torch.empty(2, dtype=torch.int32, device=meta),
+                          torch.empty((2, 8, 256), device=meta),
+                          num_tiles=2, tiles_per_row=2)
+    assert BC.launch_counts == NO_LAUNCHES
 
 
 class _OnCuda:
@@ -102,6 +125,11 @@ def test_cuda_launch_without_cuda_raises(monkeypatch):
         BC.blend_forward(_OnCuda(torch.zeros((8, 4), dtype=torch.int32)),
                          ranges, ranges, num_tiles=2, tiles_per_row=2,
                          rgb_only=True)
-    assert BC.launch_counts == {"blend_forward_rgb": 0, "blend_forward": 0}
+    assert BC.launch_counts == NO_LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        BC.blend_backward(_OnCuda(torch.zeros((16, 4))), ranges, ranges,
+                          _OnCuda(torch.zeros((2, 8, 256))), num_tiles=2,
+                          tiles_per_row=2)
+    assert BC.launch_counts == NO_LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library()

@@ -89,18 +89,25 @@ def test_rasterize_matches_jax(seed, alpha, label, cfg, mode):
     assert int(aux_t.key_overflow) == 0
 
 
-def test_rasterize_refuses_autograd():
+def test_rasterize_gradients_flow():
+    """The full render is differentiable: a loss on the image gives finite,
+    non-zero gradients to positions and features; the rgb_only render is
+    inference only and its image carries no gradient."""
     pc, feats = random_scene(8)
     scene = TScene.from_numpy(pc, feats, np.zeros(8), np.zeros(8))
     q, t = (torch.as_tensor(x) for x in identity_pose())
+    pc_g = scene.point_cloud.clone().requires_grad_(True)
     feats_g = scene.point_cloud_features.clone().requires_grad_(True)
     cam = TCamera(camera_intrinsics(), 32, 32)
-    with pytest.raises(NotImplementedError):
-        TR.rasterize(scene.point_cloud, feats_g, *scene[2:], q, t, cam,
-                     TR.RasterizerConfig(rgb_only=True))
-    with torch.no_grad():
-        TR.rasterize(scene.point_cloud, feats_g, *scene[2:], q, t, cam,
-                     TR.RasterizerConfig(rgb_only=True))
+    res = TR.rasterize(pc_g, feats_g, *scene[2:], q, t, cam,
+                       TR.RasterizerConfig(rgb_only=False, near_plane=0.1))
+    res.image.square().sum().backward()
+    for grad in (pc_g.grad, feats_g.grad):
+        assert grad is not None and bool(torch.isfinite(grad).all())
+        assert grad.abs().max() > 0
+    rgb = TR.rasterize(pc_g, feats_g, *scene[2:], q, t, cam,
+                       TR.RasterizerConfig(rgb_only=True, near_plane=0.1))
+    assert not rgb.image.requires_grad
 
 
 def test_tile_layout_roundtrip_matches_jax():

@@ -1,0 +1,426 @@
+"""Port parity for the training slice: SSIM / PSNR / the loss (values and
+gradients), the density controller (update_stats, densify_step's masks,
+counts and rank-matched fills, reset_alpha), the sampling helper in
+distribution, one trainer step against the JAX trainer's step from one
+state carried across (Adam at its first and second update, the position
+learning-rate schedule), the port's YAML loading, and a short port-only
+`train()` at 32x32 with its checkpoint round trip.
+
+Tolerances are stated at each comparison."""
+
+import dataclasses
+import glob
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from taichi_3d_gaussian_splatting_tpu import config as jconfig
+from taichi_3d_gaussian_splatting_tpu.models.scene import (
+    GaussianPointCloudScene as JScene)
+from taichi_3d_gaussian_splatting_tpu.ops import gaussian as JG
+from taichi_3d_gaussian_splatting_tpu.ops.rasterizer import (
+    BackwardStats as JStats)
+from taichi_3d_gaussian_splatting_tpu.training import controller as JC
+from taichi_3d_gaussian_splatting_tpu.training import loss as JL
+from taichi_3d_gaussian_splatting_tpu.training import ssim as JS
+from taichi_3d_gaussian_splatting_tpu.training import trainer as JT
+from taichi_3d_gaussian_splatting_torch import config as tconfig
+from taichi_3d_gaussian_splatting_torch.models.scene import (
+    GaussianPointCloudScene as TScene)
+from taichi_3d_gaussian_splatting_torch.ops import gaussian as TG
+from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
+    BackwardStats as TStats)
+from taichi_3d_gaussian_splatting_torch.training import controller as TC
+from taichi_3d_gaussian_splatting_torch.training import loss as TL
+from taichi_3d_gaussian_splatting_torch.training import ssim as TS
+from taichi_3d_gaussian_splatting_torch.training import trainer as TT
+from taichi_3d_gaussian_splatting_torch.training.adam import (
+    adam_state_from_optax)
+
+from torch_train_fixtures import config_dict, write_dataset
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# ---------------------------------------------------------------------------
+# loss and SSIM
+# ---------------------------------------------------------------------------
+
+def _images(seed, shape=(40, 48, 3)):
+    rng = np.random.default_rng(seed)
+    a = rng.random(shape).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(size=shape), 0, 1).astype(np.float32)
+    return a, b
+
+
+def test_ssim_psnr_match_jax():
+    """Values to 1e-6, the SSIM gradient at rtol 1e-4 / atol 1e-7."""
+    a, b = _images(0)
+    ta = torch.tensor(a, requires_grad=True)
+    t_ssim = TS.ssim(ta, torch.tensor(b))
+    t_ssim.backward()
+    j_ssim, j_grad = jax.value_and_grad(JS.ssim)(jnp.asarray(a),
+                                                 jnp.asarray(b))
+    assert abs(t_ssim.item() - float(j_ssim)) < 1e-6
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(j_grad),
+                               rtol=1e-4, atol=1e-7)
+    assert abs(float(TS.psnr(torch.tensor(a), torch.tensor(b)))
+               - float(JS.psnr(jnp.asarray(a), jnp.asarray(b)))) < 1e-4
+    same = torch.tensor(a)
+    assert float(TS.ssim(same, same)) > 0.9999
+
+
+def test_ssim_turns_tf32_off_only_inside():
+    """The blur forces full f32 convolutions itself and restores the
+    caller's cuDNN setting."""
+    before = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        with TS._ieee_f32_convs():
+            assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.parametrize("regularize", [False, True])
+def test_loss_function_matches_jax(regularize):
+    """(L, L1, 1 - SSIM) to 1e-6 and the gradients with respect to the
+    image and the features at rtol 1e-4 / atol 1e-7."""
+    a, b = _images(1, (32, 32, 3))
+    rng = np.random.default_rng(2)
+    feats = rng.normal(size=(20, 56)).astype(np.float32)
+    invalid = (rng.random(20) < 0.3).astype(np.int8)
+    invalid_t = torch.tensor(invalid)
+    cfg = dict(lambda_value=0.2, enable_regularization=regularize,
+               regularization_weight=2.0)
+    tfn = TL.LossFunction(TL.LossFunctionConfig(**cfg))
+    jfn = JL.LossFunction(JL.LossFunctionConfig(**cfg))
+    ta = torch.tensor(a, requires_grad=True)
+    tf = torch.tensor(feats, requires_grad=True)
+    tout = tfn(ta, torch.tensor(b), invalid_t, tf)
+    tout[0].backward()
+
+    def jloss(img, f):
+        out = jfn(img, jnp.asarray(b), jnp.asarray(invalid), f)
+        return out[0], out
+    (_, jout), (jga, jgf) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                               has_aux=True)(
+        jnp.asarray(a), jnp.asarray(feats))
+    for t, j in zip(tout, jout):
+        assert abs(t.item() - float(j)) < 1e-6
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(jga), rtol=1e-4,
+                               atol=1e-7)
+    tgf = (tf.grad.numpy() if tf.grad is not None
+           else np.zeros_like(feats))
+    np.testing.assert_allclose(tgf, np.asarray(jgf), rtol=1e-4, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# controller
+# ---------------------------------------------------------------------------
+
+N_CTRL = 32
+
+
+def _ctrl_inputs(seed):
+    """numpy scene + statistics with every kind of candidate: transparent,
+    NaN, floaters, over- and under-reconstructed, more candidates than free
+    slots."""
+    rng = np.random.default_rng(seed)
+    n = N_CTRL
+    pc = rng.normal(size=(n, 3)).astype(np.float32)
+    feats = (rng.normal(size=(n, 56)) * 0.3).astype(np.float32)
+    q = rng.normal(size=(n, 4))
+    feats[:, 0:4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    feats[:, 4:7] = rng.uniform(-3, -1, (n, 3))
+    feats[:, 7] = rng.uniform(-1, 3, n)
+    feats[3, 9] = np.nan
+    invalid = (rng.random(n) < 0.25).astype(np.int8)
+    obj = rng.integers(0, 3, n).astype(np.int32)
+    in_frustum = rng.random(n) < 0.8
+    depth = rng.uniform(1, 20, n).astype(np.float32)
+    npix = rng.integers(0, 2000, n).astype(np.int32)
+    mag = (rng.random(n) * 2e-5).astype(np.float32)
+    grad_pc = (rng.normal(size=(n, 3)) * 1e-3).astype(np.float32)
+    acc = [rng.integers(0, 3000, n).astype(np.int32),
+           rng.integers(0, 5, n).astype(np.int32),
+           (rng.random(n) * 1e-4).astype(np.float32),
+           (rng.random(n) * 1e-7).astype(np.float32),
+           (rng.normal(size=(n, 3)) * 1e-3).astype(np.float32),
+           (rng.random(n) * 1e-3).astype(np.float32)]
+    return (pc, feats, invalid, obj), in_frustum, depth, npix, mag, grad_pc, acc
+
+
+def _stats_pair(npix, mag):
+    zeros_img = np.zeros((4, 4, 2), np.float32)
+    zeros_uv = np.zeros((npix.shape[0], 2), np.float32)
+    j = JStats(jnp.asarray(zeros_uv), jnp.asarray(mag), jnp.asarray(npix),
+               jnp.asarray(zeros_img))
+    t = TStats(torch.tensor(zeros_uv), torch.tensor(mag), torch.tensor(npix),
+               torch.tensor(zeros_img))
+    return j, t
+
+
+CTRL_CASES = {
+    "split_clone": dict(
+        densification_view_space_position_gradients_threshold=3e-6,
+        densification_multi_frame_view_space_position_gradients_threshold=4e-5,
+        under_reconstructed_num_pixels_threshold=1500,
+        floater_near_camrea_num_pixels_threshold=1800,
+        floater_depth_threshold=10.0, iteration_start_remove_floater=50,
+        transparent_alpha_threshold=-0.5),
+    "clone_only_ellipsoid": dict(
+        densification_view_space_position_gradients_threshold=5e-6,
+        under_reconstructed_num_pixels_threshold=10 ** 6,
+        iteration_start_remove_floater=10 ** 6,
+        transparent_alpha_threshold=0.0, enable_ellipsoid_offset=True),
+    "no_sampling": dict(
+        densification_multi_frame_position_gradients_threshold=1e-4,
+        under_reconstructed_num_pixels_threshold=100,
+        enable_sample_from_point=False, enable_ellipsoid_offset=True),
+}
+
+
+@pytest.mark.parametrize("case", list(CTRL_CASES))
+def test_controller_matches_jax(case):
+    """update_stats to rtol 1e-6; densify_step's masks, counts, invalid
+    mask, object ids and which source fills which slot exactly; features
+    to 1e-6; positions to 1e-6 except where the JAX package draws a split
+    sample (those are held in distribution, below); reset_alpha exactly."""
+    arrays, in_frustum, depth, npix, mag, grad_pc, acc = _ctrl_inputs(7)
+    cfg = CTRL_CASES[case]
+    jcfg = JC.AdaptiveControllerConfig(**cfg)
+    tcfg = TC.AdaptiveControllerConfig(**cfg)
+    jscene = JScene(*(jnp.asarray(x) for x in arrays))
+    tscene = TScene.from_numpy(*arrays)
+    jstats, tstats = _stats_pair(npix, mag)
+    jstate = JC.ControllerState(*(jnp.asarray(x) for x in acc))
+    tstate = TC.ControllerState.from_numpy(acc)
+
+    jstate = JC.update_stats(jstate, jstats, jnp.asarray(grad_pc),
+                             jnp.asarray(in_frustum))
+    tstate = TC.update_stats(tstate, tstats, torch.tensor(grad_pc),
+                             torch.tensor(in_frustum))
+    for f in JC.ControllerState._fields:
+        np.testing.assert_allclose(getattr(tstate, f).numpy(),
+                                   np.asarray(getattr(jstate, f)),
+                                   rtol=1e-6, err_msg=f)
+
+    pos_before = arrays[0] + 0.01
+    jnew, jzero, jcounts = JC.densify_step(
+        jscene, jstate, jstats, jnp.asarray(in_frustum), jnp.asarray(depth),
+        jnp.asarray(pos_before), jnp.int32(100), jax.random.PRNGKey(0),
+        jcfg)
+    tnew, tzero, tcounts = TC.densify_step(
+        tscene, tstate, tstats, torch.tensor(in_frustum),
+        torch.tensor(depth), torch.tensor(pos_before), 100,
+        torch.Generator().manual_seed(0), tcfg)
+    for f in JC.DensifyCounts._fields:
+        np.testing.assert_array_equal(getattr(tcounts, f).numpy(),
+                                      np.asarray(getattr(jcounts, f)),
+                                      err_msg=f)
+    assert int(tcounts.num_fillable) > 0
+    if case == "split_clone":
+        assert int(tcounts.num_transparent) > 0
+        assert int(tcounts.num_floaters) > 0
+        assert int(tcounts.num_candidates) > int(tcounts.num_fillable)
+        assert 0 < int(tcounts.num_over_reconstructed) < int(
+            tcounts.num_fillable)
+    np.testing.assert_array_equal(tnew.point_invalid_mask.numpy(),
+                                  np.asarray(jnew.point_invalid_mask))
+    np.testing.assert_array_equal(tnew.point_object_id.numpy(),
+                                  np.asarray(jnew.point_object_id))
+    np.testing.assert_allclose(tnew.point_cloud_features.numpy(),
+                               np.asarray(jnew.point_cloud_features),
+                               rtol=1e-6, atol=1e-6)
+    # split samples are random in both packages; everything else is exact
+    sampled = np.zeros(N_CTRL, bool)
+    if cfg.get("enable_sample_from_point", True):
+        reduced = np.asarray(jnew.point_cloud_features)[:, 4:7] < (
+            arrays[1][:, 4:7] - 1e-3)
+        sampled = reduced.any(axis=1)
+    np.testing.assert_allclose(tnew.point_cloud.numpy()[~sampled],
+                               np.asarray(jnew.point_cloud)[~sampled],
+                               rtol=1e-6, atol=1e-6)
+    assert np.isfinite(tnew.point_cloud.numpy()).all()
+    assert not any(x.any() for x in tzero)
+
+    jr = JC.reset_alpha(jnew, jcfg)
+    tr = TC.reset_alpha(tnew, tcfg)
+    np.testing.assert_array_equal(tr.point_cloud_features.numpy()[:, 7],
+                                  np.asarray(jr.point_cloud_features)[:, 7])
+
+
+def test_sample_from_gaussian_in_distribution():
+    """Draws of the port and of the JAX package from one anisotropic
+    gaussian agree with its mean and covariance R diag(s^2) R^T to a few
+    standard errors (20000 draws each)."""
+    m = 20000
+    q = np.array([0.2, -0.3, 0.4, 0.8], np.float32)
+    q /= np.linalg.norm(q)
+    log_s = np.log(np.array([0.5, 1.0, 2.0], np.float32))
+    mean = np.array([1.0, -2.0, 3.0], np.float32)
+    tq = torch.tensor(np.tile(q, (m, 1)))
+    ts = torch.tensor(np.tile(log_s, (m, 1)))
+    tx = TG.sample_from_gaussian(torch.tensor(np.tile(mean, (m, 1))), tq, ts,
+                                 torch.Generator().manual_seed(1)).numpy()
+    jx = np.asarray(JG.sample_from_gaussian(
+        jax.random.PRNGKey(1), jnp.tile(jnp.asarray(mean), (m, 1)),
+        jnp.asarray(tq.numpy()), jnp.asarray(ts.numpy())))
+    R = TG.rotation_matrix_from_quaternion(torch.tensor(q)).numpy()
+    cov = R @ np.diag(np.exp(2 * log_s)) @ R.T
+    for x in (tx, jx):
+        assert np.abs(x.mean(0) - mean).max() < 5 * 2.0 / np.sqrt(m)
+        np.testing.assert_allclose(np.cov(x.T), cov, atol=0.1)
+    foci_t = TG.ellipsoid_foci_vector(tq[:2], ts[:2]).numpy()
+    foci_j = np.asarray(JG.ellipsoid_foci_vector(jnp.asarray(tq[:2].numpy()),
+                                                 jnp.asarray(ts[:2].numpy())))
+    np.testing.assert_allclose(foci_t, foci_j, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# trainer
+# ---------------------------------------------------------------------------
+
+def test_trainer_step_matches_jax(tmp_path):
+    """Two steps of the port's trainer against two of the JAX trainer's
+    raw step, from the JAX trainer's initial state carried across (with
+    anisotropic scales, so that no gradient is pure rounding noise), on a
+    scene without depth ties (tied keys may blend in another order). After
+    each step: the loss to 1e-5 relative; parameters, Adam moments and the
+    controller statistics at rtol 1e-4 and an atol of 1e-5 times the
+    field's largest magnitude (the blends and the routing sum in other
+    orders); the step counts exactly. The second step runs the position
+    update at base * 0.5 (decay 0.5 at count 1)."""
+    write_dataset(str(tmp_path))
+    d = config_dict(str(tmp_path))
+    jt = JT.GaussianPointCloudTrainer(jconfig.from_dict(JT.TrainConfig, d))
+    tt = TT.GaussianPointCloudTrainer(tconfig.from_dict(TT.TrainConfig, d),
+                                      device="cpu")
+    rng = np.random.default_rng(5)
+    feats = np.array(jt.scene.point_cloud_features)
+    feats[:, 4:7] += rng.uniform(-0.5, 0.5, (feats.shape[0], 3))
+    jt.scene = jt.scene._replace(point_cloud_features=jnp.asarray(feats))
+    tt.scene = TScene.from_numpy(*(np.asarray(x) for x in jt.scene))
+    tt.opt_features = adam_state_from_optax(jt.opt_state_features)
+    tt.opt_positions = adam_state_from_optax(jt.opt_state_positions)
+    tt.ctrl_state = TC.ControllerState.from_numpy(jt.ctrl_state)
+
+    jstate = (jt.scene, jt.opt_state_features, jt.opt_state_positions,
+              jt.ctrl_state)
+    for k in range(2):
+        item = jt.train_dataset[k]
+        titem = tt.train_dataset[k]
+        np.testing.assert_allclose(titem.q_pointcloud_camera,
+                                   item.q_pointcloud_camera, atol=1e-7)
+        jstep = jt._make_raw_step(item.camera_info)
+        jout = jstep(*jstate, jnp.asarray(item.image),
+                     jnp.asarray(item.q_pointcloud_camera),
+                     jnp.asarray(item.t_pointcloud_camera), jnp.int32(0),
+                     jnp.asarray(item.camera_info.camera_intrinsics))
+        jstate = jout[:4]
+        tout = tt.step(torch.as_tensor(titem.image),
+                       torch.as_tensor(titem.q_pointcloud_camera),
+                       torch.as_tensor(titem.t_pointcloud_camera), 0,
+                       titem.camera_info)
+        jloss = float(jout[4]["loss"])
+        assert abs(float(tout.metrics["loss"]) - jloss) < 1e-5 * abs(jloss)
+        pairs = {
+            "positions": (tt.scene.point_cloud,
+                          jstate[0].point_cloud),
+            "features": (tt.scene.point_cloud_features,
+                         jstate[0].point_cloud_features),
+            "feature mu": (tt.opt_features.mu, jstate[1][0].mu),
+            "feature nu": (tt.opt_features.nu, jstate[1][0].nu),
+            "position mu": (tt.opt_positions.mu, jstate[2][0].mu),
+            "position nu": (tt.opt_positions.nu, jstate[2][0].nu),
+        }
+        for f in JC.ControllerState._fields:
+            pairs[f] = (getattr(tt.ctrl_state, f), getattr(jstate[3], f))
+        for name, (t, j) in pairs.items():
+            j = np.asarray(j, np.float64)
+            scale = max(np.abs(j).max(), 1e-30)
+            np.testing.assert_allclose(t.numpy(), j, rtol=1e-4,
+                                       atol=1e-5 * scale,
+                                       err_msg=f"step {k} {name}")
+        assert int(tt.opt_positions.count) == int(jstate[2][0].count) == k + 1
+        assert int(tt.opt_features.count) == int(jstate[1][0].count) == k + 1
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(
+    REPO, "config", "*.yaml"))), ids=os.path.basename)
+def test_yaml_configs_load_as_in_jax(path):
+    """Every config of the repo loads into the port's TrainConfig with the
+    values the JAX package reads from it."""
+    t = tconfig.to_dict(TT.TrainConfig.from_yaml_file(path))
+    j = jconfig.to_dict(JT.TrainConfig.from_yaml_file(path))
+
+    def same(a, b, where):
+        if isinstance(b, dict):
+            for k, v in b.items():
+                assert k in a, f"{where}.{k}"
+                same(a[k], v, f"{where}.{k}")
+        else:
+            assert a == b or (isinstance(b, (list, tuple))
+                              and list(a) == list(b)), (where, a, b)
+    same(t, j, os.path.basename(path))
+
+
+def test_train_end_to_end_and_resume(tmp_path):
+    """A 21-iteration port-only run at 32x32 with densify and two
+    validations: the loss falls, the parquets load back, and the checkpoint
+    restores the whole state exactly."""
+    write_dataset(str(tmp_path))
+    d = config_dict(str(tmp_path))
+    cfg = tconfig.from_dict(TT.TrainConfig, d)
+    trainer = TT.GaussianPointCloudTrainer(cfg, device="cpu")
+    trainer.train()
+    logdir = tmp_path / "logs"
+    records = [json.loads(line) for line in open(logdir / "metrics.jsonl")]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    assert len(losses) == 21 and np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < np.mean(losses[:3])
+    assert any("densify/num_fillable" in r for r in records)
+    for name in ("scene_10.parquet", "scene_20.parquet", "best_scene.parquet"):
+        scene = TScene.from_parquet(str(logdir / name))
+        assert scene.num_valid_points() > 0
+        assert np.isfinite(scene.point_cloud_features.numpy()).all()
+
+    saved = trainer.state_arrays()
+    resumed = TT.GaussianPointCloudTrainer(dataclasses.replace(
+        tconfig.from_dict(TT.TrainConfig, d),
+        resume_from_checkpoint=str(logdir / "train_state.npz")),
+        device="cpu")
+    assert resumed.start_iteration == 21
+    assert resumed.best_psnr_score == trainer.best_psnr_score
+    got = resumed.state_arrays()
+    assert got.keys() == saved.keys()
+    for k in saved:
+        assert got[k].dtype == saved[k].dtype, k
+        assert torch.equal(got[k], saved[k]), k
+
+
+def test_train_streams_without_device_cache(tmp_path):
+    """With the device cache off the views come from the prefetching
+    loader, downsampled by the coarse-to-fine schedule (64x64 images at
+    factor 2, then 1)."""
+    write_dataset(str(tmp_path), size=64)
+    d = config_dict(str(tmp_path), num_iterations=4, val_interval=10 ** 6,
+                    cache_dataset_on_device=False,
+                    initial_downsample_factor=2,
+                    half_downsample_factor_interval=2)
+    trainer = TT.GaussianPointCloudTrainer(
+        tconfig.from_dict(TT.TrainConfig, d), device="cpu")
+    trainer.train()
+    records = [json.loads(line)
+               for line in open(tmp_path / "logs" / "metrics.jsonl")]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert os.path.isfile(tmp_path / "logs" / "scene_4.parquet")

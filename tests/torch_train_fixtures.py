@@ -1,0 +1,124 @@
+"""A small training set for the port's trainer, written with the port's
+own render (torch only, no JAX), and the config the trainer tests run it
+with. Used by tests/test_torch_training.py, tests/test_torch_cuda.py and
+chip_smoke.py."""
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from taichi_3d_gaussian_splatting_torch.camera import CameraInfo as TCamera
+from taichi_3d_gaussian_splatting_torch.models.scene import (
+    GaussianPointCloudScene as TScene)
+from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
+    RasterizerConfig as TRasterizerConfig, rasterize as trasterize)
+
+
+H = W = 32
+FOCAL = 24.0
+
+
+def write_dataset(root, n_views=3, n_points=30, seed=0, size=W):
+    """A size x size (32x32) dataset rendered by the port: PNGs, train/val
+    JSONs and a jittered init parquet with r, g, b columns."""
+    import pandas as pd
+    import PIL.Image
+    rng = np.random.default_rng(seed)
+    pc = np.concatenate([rng.uniform(-0.7, 0.7, (n_points, 2)),
+                         rng.uniform(1.5, 3.0, (n_points, 1))],
+                        axis=1).astype(np.float32)
+    feats = np.zeros((n_points, 56), np.float32)
+    q = rng.normal(size=(n_points, 4))
+    feats[:, 0:4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    feats[:, 4:7] = rng.uniform(-2.5, -1.5, (n_points, 3))
+    feats[:, 7] = 2.0
+    feats[:, 8] = rng.normal(size=n_points) + 1
+    feats[:, 24] = rng.normal(size=n_points)
+    feats[:, 40] = rng.normal(size=n_points) - 0.5
+    focal = FOCAL * size / W
+    intr = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],
+                    np.float32)
+    scene = TScene.from_numpy(pc, feats, np.zeros(n_points),
+                              np.zeros(n_points))
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    records = []
+    for v in range(n_views):
+        t = np.array([0.05 * (v - 1), 0.02 * v, -0.1 * v], np.float32)
+        with torch.no_grad():
+            img = trasterize(*scene, torch.tensor([[0.0, 0.0, 0.0, 1.0]]),
+                             torch.tensor(t[None]), TCamera(intr, size, size),
+                             TRasterizerConfig(near_plane=0.1,
+                                               rgb_only=True)).image
+        path = os.path.join(root, "images", f"view_{v}.png")
+        PIL.Image.fromarray((img.clamp(0, 1).numpy() * 255).astype(
+            np.uint8)).save(path)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = t
+        records.append(dict(image_path=path, T_pointcloud_camera=pose.tolist(),
+                            camera_intrinsics=intr.tolist(),
+                            camera_height=size, camera_width=size,
+                            camera_id=0))
+    with open(os.path.join(root, "train.json"), "w") as f:
+        json.dump(records, f)
+    with open(os.path.join(root, "val.json"), "w") as f:
+        json.dump(records[:1], f)
+    init = pc + rng.normal(scale=0.05, size=pc.shape).astype(np.float32)
+    # init depths on a ladder 5 sort buckets apart, mid-bucket in every
+    # view: no two keys tie, so both packages blend in one order
+    init[:, 2] = 1.505 + 0.05 * rng.permutation(n_points)
+    df = pd.DataFrame(init, columns=["x", "y", "z"])
+    df[["r", "g", "b"]] = rng.integers(1, 255, (n_points, 3))
+    df.to_parquet(os.path.join(root, "pc.parquet"))
+
+
+def config_dict(root, **over):
+    d = dict(
+        train_dataset_json_path=os.path.join(root, "train.json"),
+        val_dataset_json_path=os.path.join(root, "val.json"),
+        pointcloud_parquet_path=os.path.join(root, "pc.parquet"),
+        num_iterations=21, val_interval=10, feature_learning_rate=5e-3,
+        position_learning_rate=1e-3,
+        position_learning_rate_decay_rate=0.5,
+        position_learning_rate_decay_interval=100,
+        initial_downsample_factor=1, log_loss_interval=1,
+        log_image_interval=10 ** 9,
+        summary_writer_log_dir=os.path.join(root, "logs"),
+        rasterisation_config=dict(
+            near_plane=0.1, max_keys=2048, max_tiles_per_point=16,
+            mid_point_divisor=1, big_point_divisor=1),
+        adaptive_controller_config=dict(
+            num_iterations_warm_up=5, num_iterations_densify=5,
+            transparent_alpha_threshold=-3.0,
+            densification_view_space_position_gradients_threshold=1e-4),
+        gaussian_point_cloud_scene_config=dict(max_num_points_ratio=2.0,
+                                               initial_alpha=1.0))
+    d.update(over)
+    return d
+
+
+def one_step_state(root, device):
+    """Build the port's trainer on `device` from the dataset under `root`
+    (see write_dataset / config_dict), make its scales anisotropic (seeded,
+    so that no gradient is pure rounding noise), take one step on view 0
+    and return (loss, the training state as numpy arrays by name)."""
+    from taichi_3d_gaussian_splatting_torch import config as tconfig
+    from taichi_3d_gaussian_splatting_torch.training import trainer as TT
+    trainer = TT.GaussianPointCloudTrainer(
+        tconfig.from_dict(TT.TrainConfig, config_dict(root)), device=device)
+    feats = trainer.scene.point_cloud_features.cpu().numpy()
+    rng = np.random.default_rng(5)
+    feats[:, 4:7] += rng.uniform(-0.5, 0.5, (feats.shape[0], 3))
+    trainer.scene = trainer.scene._replace(
+        point_cloud_features=torch.as_tensor(feats, device=trainer.device))
+    item = trainer.train_dataset[0]
+    out = trainer.step(
+        torch.as_tensor(item.image, device=trainer.device),
+        torch.as_tensor(item.q_pointcloud_camera, device=trainer.device),
+        torch.as_tensor(item.t_pointcloud_camera, device=trainer.device), 0,
+        item.camera_info)
+    arrays = {k: v.cpu().numpy() for k, v in trainer.state_arrays().items()
+              if not k.endswith("generator")}
+    trainer.logger.close()
+    return float(out.metrics["loss"]), arrays
