@@ -9,11 +9,16 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build: the CUDA kernels from taichi_3d_gaussian_splatting_torch/csrc;
   3. kernel vs plain version on the card, for the blend's three variants
      (rgb_only on the packed8 and wide16 slabs, the full render on wide16),
-     on the three 32x32 fixtures of tests/ab_runner.py and at 976x544 on
-     the binned inputs of a 20k-point scene, of the main path's 430k scene
-     and of the 1.03M heavy-tailed scene, with the kernel's and the plain
-     version's device times; then the whole render on the card against the
-     port's CPU path on the small fixtures;
+     on the three 32x32 fixtures of tests/ab_runner.py, on the long-segment
+     fixture of tests/torch_chunk_fixtures.py (tiles of several chunks,
+     pixels that saturate on a chunk's first key) and at 976x544 on the
+     binned inputs of a 20k-point scene, of the main path's 430k scene and
+     of the 1.03M heavy-tailed scene (whose long tiles split into chunks;
+     the work-list kernel is held exactly against its plain version on
+     each), with the kernel's and the plain version's device times and each
+     kernel's work and bound (tests/torch_chunk_fixtures.py work); then the
+     whole render on the card against the port's CPU path on the small
+     fixtures;
   4. main path: `rasterize(rgb_only=True)` of the 430k-point synthetic
      scene of bench.py at 976x544 (fx 581.7, near 0.4), frame time over 50
      frames after 10 warm-up frames, a per-stage breakdown, and one full
@@ -21,9 +26,11 @@ Phases (any failure exits non-zero; nothing is caught):
      are read over this phase only. Then the frame time of the 1.03M
      heavy-tailed scene of benchmark/synthetic_checkpoint.py.
   3b. the backward blend kernel against its plain version on the card, on
-     the three 32x32 fixtures and the binned 20k and 430k scenes (a seeded
-     image cotangent, the colour of the forward kernel), with both device
-     times;
+     the three 32x32 fixtures, the long-segment fixture and the binned 20k,
+     430k and 1.03M scenes (a seeded image cotangent; the forward kernel's
+     colour and `last` through the rasterizer's `_backward_pixel_in`), with
+     both device times at 430k and 1.03M; at 1.03M the conic rows are held
+     against the plain version in float64 (see compare_backward);
   5. training path: a 4-view 976x544 dataset rendered by the port from the
      430k scene, an init parquet of its jittered positions, and the port's
      `GaussianPointCloudTrainer(...).train()` for 30 iterations with
@@ -32,8 +39,12 @@ Phases (any failure exits non-zero; nothing is caught):
      step time, a per-stage breakdown of a step and the densify time, and
      one 32x32 step on the card against the same step on the CPU.
 
-The second-to-last line is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}. Needs no network and imports no JAX.
+The second-to-last line is a JSON object describing each kernel at the
+main path's shapes (430k scene; launches from phases 4 and 5): its time,
+its plain version's, its bound and what sets it (tests/
+torch_chunk_fixtures.py work), the pairs it evaluates, and library_ms null
+(no PyTorch call computes the blend). The last line is {"ok": true, "device": {...}}.
+Needs no network and imports no JAX.
 """
 
 import json
@@ -42,6 +53,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -322,6 +334,9 @@ def main():
         sys.path.insert(0, os.path.join(REPO, sub))
     import torch_port_fixtures as fx
     from synthetic_checkpoint import make_heavy_tailed_checkpoint
+    from torch_chunk_fixtures import (CFG_MAIN, binned_inputs,
+                                      long_segment_slab, pair_counts,
+                                      seeded_pixel_in, work)
     from taichi_3d_gaussian_splatting_torch.camera import CameraInfo
     from taichi_3d_gaussian_splatting_torch.models.scene import (
         GaussianPointCloudScene)
@@ -330,8 +345,8 @@ def main():
     from taichi_3d_gaussian_splatting_torch.ops.projection import (
         compute_point_attributes)
     from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
-        RasterizerConfig, TileGrid, _blend_inputs_from_attrs,
-        _image_to_tiles, _project_and_bin, _result_from_tile_out, rasterize)
+        RasterizerConfig, _blend_inputs_from_attrs, _result_from_tile_out,
+        rasterize)
     from taichi_3d_gaussian_splatting_torch.ops.tiling import (
         bin_points_to_tiles, blend_slab)
     from taichi_3d_gaussian_splatting_torch.ops.transforms import (
@@ -381,15 +396,7 @@ def main():
                   "acc_alpha": BC.OUT_ACC_ALPHA, "norm": BC.OUT_NORM}
 
     def binned(pc, feats, cam, cfg_kwargs):
-        cfg = RasterizerConfig(**cfg_kwargs)
-        with torch.no_grad():
-            _, cols, depth, binning = _project_and_bin(
-                *scene_on(pc, feats, cuda), *pose(cuda), cam, cfg, None)
-            slabs = {"wide16": binning.point_data,
-                     "packed8": blend_slab(cols + (depth,),
-                                           binning.sorted_point_idx,
-                                           "packed8")}
-        return binning, slabs
+        return binned_inputs(pc, feats, cam, cfg_kwargs, cuda)
 
     def compare(label, cam, binning, slabs):
         for name, fmt, rgb_only in variants:
@@ -437,20 +444,60 @@ def main():
         compare(f"ab-{label} 32x32", small_cam, *binned(pc, feats, small_cam,
                                                         cfg))
 
+    def split_report(label, binning, mk):
+        """How the kernels' work list cuts this input (one host sync)."""
+        work = BC.build_work_list(binning.tile_starts, binning.tile_ends, mk)
+        plain = BC.chunk_work_list(binning.tile_starts, binning.tile_ends, mk)
+        if not torch.equal(work.items, plain.items):
+            fail(f"{label}: the work-list kernel differs from its plain "
+                 f"version")
+        items = work.items
+        valid = items[BC.ITEM_TILE] >= 0
+        split = valid & (items[BC.ITEM_COUNT] > 1)
+        n_split = int(split.sum())
+        tiles = int(torch.unique(items[BC.ITEM_TILE][split]).numel())
+        print(f"{label}: work list of {int(valid.sum())} items, {tiles} "
+              f"tiles split into {n_split} chunks of at most "
+              f"{BC.CHUNK_KEYS} keys", flush=True)
+        return tiles
+
+    # tiles of several chunks, with pixels saturating on a chunk's first key
+    long_slabs, long_starts, long_ends = long_segment_slab(BC.CHUNK_KEYS)
+    long_slabs = {k: v.to(cuda) for k, v in long_slabs.items()}
+    long_binning = types.SimpleNamespace(tile_starts=long_starts.to(cuda),
+                                         tile_ends=long_ends.to(cuda))
+    long_cam = CameraInfo(fx.camera_intrinsics(w=64), 32, 64)
+    if split_report("long-segment fixture", long_binning,
+                    long_slabs["wide16"].shape[1]) < 5:
+        fail("the long-segment fixture does not split its tiles")
+    sat_pos = pair_counts(long_slabs["wide16"], long_binning.tile_starts,
+                          long_binning.tile_ends,
+                          num_tiles=long_cam.num_tiles,
+                          tiles_per_row=long_cam.tiles_per_row)["sat_pos"]
+    at_boundary = int(((sat_pos % BC.CHUNK_KEYS == 0) & (sat_pos > 0)).sum())
+    print(f"long-segment fixture: {at_boundary} pixels saturate on the first "
+          f"key of a later chunk", flush=True)
+    if at_boundary == 0:
+        fail("no pixel of the long-segment fixture saturates at a chunk "
+             "boundary")
+    compare("long-segment fixture 64x32", long_cam, long_binning, long_slabs)
+
     intr = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]],
                     np.float32)
     cam = CameraInfo(camera_intrinsics=intr, camera_height=H, camera_width=W)
-    cfg_main = dict(near_plane=0.4, far_plane=1000.0, max_tiles_per_point=32)
+    cfg_main = CFG_MAIN
     scenes = {"mid 20k": bench_scene(20000),
               "430k synthetic": bench_scene(430000),
               "1.03M heavy-tailed": make_heavy_tailed_checkpoint(
                   1030000, np.random.default_rng(0))}
-    kernel_ms, plain_ms = {}, {}
+    kernel_ms, plain_ms, bounds = {}, {}, {}
     for label, (pc, feats) in scenes.items():
         binning, slabs = binned(pc, feats, cam, cfg_main)
         seg = binning.tile_ends - binning.tile_starts
         print(f"{label} at {W}x{H}: {int(binning.total_keys)} keys, "
               f"longest tile segment {int(seg.max())}", flush=True)
+        split_report(f"{label} {W}x{H}", binning,
+                     binning.point_data.shape[1])
         compare(f"{label} {W}x{H}", cam, binning, slabs)
         # the plain version loops once per key of the longest segment
         reps, warmup = (1, 0) if int(seg.max()) > 5000 else (3, 1)
@@ -461,10 +508,16 @@ def main():
             k_ms = time_ms(lambda: BC.blend_forward(*args, **kw), 20)
             p_ms = time_ms(lambda: BC.blend_forward_torch(*args, **kw),
                            reps, warmup=warmup)
+            wk = work(name, args[0], *args[1:], cam.num_tiles,
+                      cam.tiles_per_row)
             print(f"{label} {name}/{fmt}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms ({card})", flush=True)
+                  f"{p_ms:.4f} ms, {wk['pairs']} pairs evaluated "
+                  f"({wk['pairs_no_exit']} with no early exit), bound "
+                  f"{wk['bound_ms']:.4f} ms by {wk['bound_by']} ({card})",
+                  flush=True)
             if label == "430k synthetic":   # the main path's shapes
                 kernel_ms[name], plain_ms[name] = k_ms, p_ms
+                bounds[name] = wk
         del binning, slabs
 
     # the whole render on the card vs the port's CPU path
@@ -499,37 +552,71 @@ def main():
                  "mag_uv": BC.GROW_MAG_UV}
     max_err["blend_backward"] = 0.0
 
-    def backward_args(cam, binning, seed):
+    def backward_args(cam, slab, binning, seed):
         """(wide16 slab, ranges, pixel_in): a seeded normal image cotangent
-        beside the forward kernel's colour."""
+        beside the forward kernel's colour and `last`, as the rasterizer
+        builds it in training."""
         kw = dict(num_tiles=cam.num_tiles, tiles_per_row=cam.tiles_per_row)
-        fwd = BC.blend_forward(binning.point_data, binning.tile_starts,
-                               binning.tile_ends, rgb_only=False, **kw)
-        rng = np.random.default_rng(seed)
-        g = torch.as_tensor(rng.normal(size=(
-            cam.camera_height, cam.camera_width, 3)).astype(np.float32),
-            device=cuda)
-        g_tiles = _image_to_tiles(g, TileGrid.from_camera(cam))
-        pixel_in = torch.cat([g_tiles, fwd[:, 0:3],
-                              torch.zeros_like(g_tiles[:, 0:2])],
-                             dim=1).contiguous()
-        return (binning.point_data, binning.tile_starts, binning.tile_ends,
-                pixel_in), kw
+        fwd = BC.blend_forward(slab, binning.tile_starts, binning.tile_ends,
+                               rgb_only=False, **kw)
+        pixel_in = seeded_pixel_in(fwd, cam, seed)
+        return (slab, binning.tile_starts, binning.tile_ends, pixel_in), kw
 
-    def compare_backward(label, cam, binning, seed):
-        args, kw = backward_args(cam, binning, seed)
+    conic_rows = ("da", "db", "dc")
+
+    def compare_backward(label, cam, binning, seed, slab=None,
+                         conic_float64=False):
+        """K3 against its plain version; returns (args, kw, the plain
+        version's device ms for this one call).
+
+        With `conic_float64` (the 1.03M scene), the conic rows (da, db, dc:
+        float32 sums over a tile of +-G dx^2 terms, up to ~2e4 there, which
+        cancel at some keys) are held against the plain version in float64
+        (blend_backward_torch dtype=float64, the same contributing keys) at
+        rtol 2e-3 and an absolute tolerance of twice the float32 plain
+        version's own largest deviation from it in that row: the kernel
+        rounds no worse than its float32 yardstick. The deviations of
+        both, and the elements outside rtol 2e-3 / atol 1e-4 of the float32
+        plain version, are printed."""
+        slab = binning.point_data if slab is None else slab
+        args, kw = backward_args(cam, slab, binning, seed)
         got = [x.cpu().numpy() for x in BC.blend_backward(*args, **kw)]
-        ref = [x.cpu().numpy() for x in BC.blend_backward_torch(*args, **kw)]
-        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = BC.blend_backward_torch(*args, **kw)
+        end.record()
+        end.synchronize()
+        p_ms = start.elapsed_time(end)
+        ref = [x.cpu().numpy() for x in ref]
         if not all(np.isfinite(x).all() for x in got):
             fail(f"{label} blend_backward: non-finite kernel output")
-        devs = {}
+        ref64 = None
+        if conic_float64:
+            ref64 = BC.blend_backward_torch(*args, **kw,
+                                            dtype=torch.float64)[0]
+            ref64 = ref64[[grad_rows[k] for k in conic_rows]].cpu().numpy()
+        devs, notes = {}, []
         for key, row in grad_rows.items():
-            devs[key] = float(np.abs(got[0][row] - ref[0][row]).max(
-                initial=0))
-            np.testing.assert_allclose(got[0][row], ref[0][row],
-                                       rtol=fx.RTOL, atol=fx.ATOL,
-                                       err_msg=f"{label} backward {key}")
+            diff = np.abs(got[0][row] - ref[0][row])
+            devs[key] = float(diff.max(initial=0))
+            if ref64 is None or key not in conic_rows:
+                np.testing.assert_allclose(got[0][row], ref[0][row],
+                                           rtol=fx.RTOL, atol=fx.ATOL,
+                                           err_msg=f"{label} backward {key}")
+                continue
+            exact = ref64[conic_rows.index(key)]
+            e_plain = float(np.abs(ref[0][row] - exact).max(initial=0))
+            e_kernel = float(np.abs(got[0][row] - exact).max(initial=0))
+            outside = int((diff > fx.ATOL + fx.RTOL * np.abs(
+                ref[0][row])).sum())
+            notes.append(f"{key}: kernel {e_kernel:.3g} and plain "
+                         f"{e_plain:.3g} from float64, {outside} keys "
+                         f"outside rtol/atol of the plain version")
+            np.testing.assert_allclose(
+                got[0][row], exact, rtol=fx.RTOL,
+                atol=max(fx.ATOL, 2.0 * e_plain),
+                err_msg=f"{label} backward {key} against float64")
         devs["mag_image"] = float(np.abs(got[1] - ref[1]).max())
         np.testing.assert_allclose(got[1], ref[1], rtol=fx.RTOL, atol=fx.ATOL,
                                    err_msg=f"{label} backward mag image")
@@ -542,27 +629,37 @@ def main():
                                got[0][BC.GROW_NUM_PIXELS],
                                f"{label} backward num_pixels")
         print(f"kernel vs plain [{label}] blend_backward: max |d| "
-              + " ".join(f"{k}={v:.3g}" for k, v in devs.items()),
-              flush=True)
-        return args, kw
+              + " ".join(f"{k}={v:.3g}" for k, v in devs.items())
+              + "".join(f"; {n}" for n in notes), flush=True)
+        return args, kw, p_ms
 
     for seed, alpha, label, cfg in fx.AB_CASES:
         pc, feats = fx.random_scene(60, seed=seed, alpha=alpha)
         compare_backward(f"ab-{label} 32x32", small_cam,
                          binned(pc, feats, small_cam, cfg)[0], seed)
-    for label in ("mid 20k", "430k synthetic"):
+    compare_backward("long-segment fixture 64x32", long_cam, long_binning, 5,
+                     slab=long_slabs["wide16"])
+    for label in ("mid 20k", "430k synthetic", "1.03M heavy-tailed"):
         binning, _ = binned(*scenes[label], cam, cfg_main)
-        args, kw = compare_backward(f"{label} {W}x{H}", cam, binning, 7)
+        args, kw, p_ms = compare_backward(
+            f"{label} {W}x{H}", cam, binning, 7,
+            conic_float64=label == "1.03M heavy-tailed")
         seg = binning.tile_ends - binning.tile_starts
-        reps, warmup = (1, 0) if int(seg.max()) > 5000 else (3, 1)
+        if int(seg.max()) <= 5000:   # else the one compared call's time
+            p_ms = time_ms(lambda: BC.blend_backward_torch(*args, **kw), 3,
+                           warmup=1)
         k_ms = time_ms(lambda: BC.blend_backward(*args, **kw), 20)
-        p_ms = time_ms(lambda: BC.blend_backward_torch(*args, **kw), reps,
-                       warmup=warmup)
+        wk = work("blend_backward", args[0], *args[1:3], cam.num_tiles,
+                  cam.tiles_per_row, last=args[3][:, BC.PIXEL_IN_LAST])
         print(f"{label} blend_backward/wide16: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms ({card})", flush=True)
+              f"{p_ms:.4f} ms, {wk['pairs']} pairs below `last` "
+              f"({wk['pairs_no_exit']} with no early exit), bound "
+              f"{wk['bound_ms']:.4f} ms by {wk['bound_by']} ({card})",
+              flush=True)
         if label == "430k synthetic":
             kernel_ms["blend_backward"] = k_ms
             plain_ms["blend_backward"] = p_ms
+            bounds["blend_backward"] = wk
         del binning, args
 
     # ---- 4. main path ---------------------------------------------------
@@ -669,18 +766,19 @@ def main():
         step_cuda_vs_cpu(small, fail)
     launches["blend_backward"] = train_launches["blend_backward"]
 
-    kernels = [{"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": TPU_KERNEL, "launches": launches[name],
-                "max_abs_err": max_err[name], "ms": kernel_ms[name],
-                "plain_ms": plain_ms[name]}
-               for name in ("blend_forward_rgb", "blend_forward")]
-    kernels.append({"name": "blend_backward", "route": "cuda",
-                    "source": BACKWARD_SOURCE,
-                    "replaces": TPU_BACKWARD_KERNEL,
-                    "launches": launches["blend_backward"],
-                    "max_abs_err": max_err["blend_backward"],
-                    "ms": kernel_ms["blend_backward"],
-                    "plain_ms": plain_ms["blend_backward"]})
+    # no PyTorch call computes the blend: library_ms is null
+    kernels = [{"name": name, "route": "cuda",
+                "source": (BACKWARD_SOURCE if name == "blend_backward"
+                           else KERNEL_SOURCE),
+                "replaces": (TPU_BACKWARD_KERNEL if name == "blend_backward"
+                             else TPU_KERNEL),
+                "launches": launches[name], "max_abs_err": max_err[name],
+                "ms": kernel_ms[name], "plain_ms": plain_ms[name],
+                "bound_ms": bounds[name]["bound_ms"],
+                "bound_by": bounds[name]["bound_by"], "library_ms": None,
+                "pairs": bounds[name]["pairs"]}
+               for name in ("blend_forward_rgb", "blend_forward",
+                            "blend_backward")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

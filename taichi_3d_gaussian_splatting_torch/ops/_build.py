@@ -46,15 +46,22 @@ def _nvcc() -> str:
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.t3dgs_build_work_list
+    # tile_starts, tile_ends, num_tiles, mk, chunk, counters, items,
+    # num_items, stream
+    fn.argtypes = [p, p, i, i, i, p, p, i, p]
+    fn.restype = i
     fn = lib.t3dgs_blend_forward
-    # data, tile_starts, tile_ends, out, mk, num_tiles, tiles_per_row,
+    # data, tile_starts, tile_ends, num_tiles, chunk, items, num_items,
+    # num_split_items, counters, tchunk, partial, out, mk, tiles_per_row,
     # packed8, rgb_only, stream
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, i, i, i, i, p]
     fn.restype = i
     fn = lib.t3dgs_blend_backward
-    # data, tile_starts, tile_ends, pixel_in, grad, mag, mk, num_tiles,
+    # data, tile_starts, tile_ends, num_tiles, chunk, items, num_items,
+    # num_split_items, counters, pixel_in, tq, mag_part, grad, mag, mk,
     # tiles_per_row, stream
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    fn.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, p]
     fn.restype = i
     return lib
 

@@ -1,10 +1,9 @@
 """Per-tile front-to-back alpha blend and its backward: the CUDA kernels'
 wrappers and their plain PyTorch versions.
 
-The kernel (``csrc/blend_forward.cu``) gives each 16x16 tile one block of
-256 threads, one thread per pixel (pixel p = v_in * 16 + u_in, centre
-+0.5). Each pixel walks its tile's depth-sorted key range
-``[tile_starts[t], tile_ends[t])`` of the blend slab in order:
+Each pixel (16x16 tiles, pixel p = v_in * 16 + u_in, centre +0.5) walks
+its tile's depth-sorted key range ``[tile_starts[t], tile_ends[t])`` of
+the blend slab in order:
 
 - alpha = exp(-0.5 (a dx^2 + c dy^2) - b dx dy + logw), dx, dy = pixel - mean;
 - the key is skipped if alpha < 1/255, and alpha is clamped at 0.99;
@@ -19,9 +18,17 @@ depth, last and count rows are 0. ``depth`` is sum(w d) / max(sum w, 1e-6);
 ``last`` is the slab column of the last contributing key and ``count`` the
 number of contributing keys.
 
-The backward (``csrc/blend_backward.cu``, ``blend_backward``) replays the
-same blend per pixel and returns per key the gradient slab rows ``GROW_*``
-and per pixel the sums of |gx| and |gy| (see ``blend_backward_torch``).
+The backward (``blend_backward``) replays the blend per pixel over the keys
+the forward blended (not skipped, and below the forward's ``last``) and
+returns per key the gradient slab rows ``GROW_*`` and per pixel the sums of
+|gx| and |gy| (see ``blend_backward_torch``).
+
+The kernels (``csrc/blend_forward.cu``, ``csrc/blend_backward.cu``) cut
+each tile's range into chunks of at most ``CHUNK_KEYS`` keys (the work
+list of ``build_work_list``, whose plain version is ``chunk_work_list``),
+blend the chunks of one tile in separate blocks from each chunk's
+transmittance at its start, and merge them in chunk order; the plain
+versions stay sequential and are the yardstick of correctness.
 
 ``blend_forward`` and ``blend_backward`` run their kernel on CUDA tensors
 and the plain version on CPU tensors; any other device raises. There is no
@@ -29,6 +36,8 @@ fallback.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -62,6 +71,10 @@ TRANSMITTANCE_SATURATION = 1e-4
 (OUT_R, OUT_G, OUT_B, OUT_DEPTH, OUT_ACC_ALPHA, OUT_NORM, OUT_LAST_EFF,
  OUT_COUNT) = range(8)
 
+# Row of the backward's (num_tiles, 8, 256) per-pixel input [g_r, g_g,
+# g_b, C_r, C_g, C_b, last, 0] that holds the forward's OUT_LAST_EFF
+PIXEL_IN_LAST = 6
+
 # Rows of the backward's (16, MK) per-key gradient slab (rows 6, 7 and
 # 13..15 stay 0)
 GROW_DU = 0
@@ -87,6 +100,107 @@ launch_counts = {"blend_forward_rgb": 0, "blend_forward": 0,
 def reset_launch_counts():
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+# Keys per chunk of the kernels' work list (passed to every launch). At
+# least the 430k scene's longest tile segment at 976x544 (664 keys), so that
+# scene blends in one pass with no merge; short enough that the 1.03M heavy
+# scene's 22,500-key tile becomes 30 chunks, each about as long as an
+# ordinary tile.
+CHUNK_KEYS = 768
+# Rows of the forward's per-chunk partials of a split tile (r, g, b, sum w,
+# sum w d, last, count, T at its end, state; csrc/blend_forward.cu PartRow)
+PARTIAL_ROWS = 9
+# The backward reads the forward's `last` as a float, exact below 2**24
+MAX_BACKWARD_COLUMNS = 2 ** 24
+
+# Rows of the (5, num_items) int32 work list
+ITEM_TILE, ITEM_START, ITEM_END, ITEM_INDEX, ITEM_COUNT = range(5)
+
+
+class ChunkWorkList(NamedTuple):
+    """The kernels' work: each tile's range, clamped into [0, mk], cut into
+    chunks of at most `chunk` keys, one item each (an empty tile is one
+    empty item). Tiles of more than one chunk ("split" tiles) come first,
+    each group in tile order; a tile's items are consecutive.
+
+    items: (5, num_items) int32, rows ITEM_*: tile (-1 past the last item),
+      first key, end key, chunk index j in the tile, chunk count n.
+    num_items and num_split_items are host integers, bounds that hold for
+    disjoint ranges within [0, mk] (the binning's), found without a host
+    sync: num_items >= the items, num_split_items >= the items of split
+    tiles. A split tile has l > chunk keys and ceil(l / chunk) < 2 l / chunk
+    items, and the ranges hold at most mk keys together."""
+    items: torch.Tensor
+    num_items: int
+    num_split_items: int
+
+
+def _work_bounds(num_tiles, mk, chunk):
+    num_items = num_tiles + mk // chunk
+    return num_items, min(num_items, 2 * mk // chunk)
+
+
+def chunk_work_list(tile_starts, tile_ends, mk, chunk=CHUNK_KEYS):
+    """Plain version of the kernels' work-list builder
+    (csrc/blend_common.cuh build_work_kernel) for the ranges
+    [tile_starts, tile_ends) over a slab of `mk` columns, on their device,
+    with no host sync."""
+    num_tiles = tile_starts.shape[0]
+    num_items, num_split = _work_bounds(num_tiles, mk, chunk)
+    start = tile_starts.long().clamp(0, mk)
+    end = torch.maximum(tile_ends.long().clamp(max=mk), start)
+    n = torch.clamp((end - start + (chunk - 1)) // chunk, min=1)
+    order = torch.sort((n == 1).to(torch.uint8), stable=True).indices
+    n_ord = n[order]
+    stop = torch.cumsum(n_ord, 0)
+    i = torch.arange(num_items, device=tile_starts.device)
+    pos = torch.searchsorted(stop, i, right=True)
+    valid = pos < num_tiles
+    pos = pos.clamp(max=num_tiles - 1)
+    tile = order[pos]
+    j = i - (stop[pos] - n_ord[pos])
+    item_start = start[tile] + j * chunk
+    items = torch.stack([tile, item_start,
+                         torch.minimum(item_start + chunk, end[tile]), j,
+                         n_ord[pos]])
+    items = torch.where(valid[None], items, torch.zeros_like(items))
+    items[ITEM_TILE] = torch.where(valid, tile, -1)
+    return ChunkWorkList(items.to(torch.int32), num_items, num_split)
+
+
+def _work_scratch(num_tiles, mk, device):
+    """(ChunkWorkList with its items uninitialised, per-tile counters) for
+    the kernels to fill."""
+    num_items, num_split = _work_bounds(num_tiles, mk, CHUNK_KEYS)
+    items = torch.empty((5, num_items), dtype=torch.int32, device=device)
+    counters = torch.empty(num_tiles, dtype=torch.int32, device=device)
+    return ChunkWorkList(items, num_items, num_split), counters
+
+
+def build_work_list(tile_starts, tile_ends, mk):
+    """The ChunkWorkList at CHUNK_KEYS of int32 ranges (num_tiles >= 1),
+    as the blend kernels build it at the start of each launch: CPU tensors
+    take the plain version; CUDA tensors launch the builder kernel; any
+    other device raises."""
+    device = tile_starts.device
+    if device.type == "cpu":
+        return chunk_work_list(tile_starts, tile_ends, mk)
+    if device.type != "cuda":
+        raise RuntimeError(f"build_work_list runs on cpu or cuda tensors, "
+                           f"got {device}")
+    from ._build import load_library
+    lib = load_library()
+    num_tiles = tile_starts.shape[0]
+    work, counters = _work_scratch(num_tiles, mk, device)
+    with torch.cuda.device(device):
+        err = lib.t3dgs_build_work_list(
+            tile_starts.data_ptr(), tile_ends.data_ptr(), num_tiles, mk,
+            CHUNK_KEYS, counters.data_ptr(), work.items.data_ptr(), work.num_items,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"work-list kernel launch failed: CUDA error {err}")
+    return work
 
 
 def _slab_columns(point_data):
@@ -115,6 +229,15 @@ def _pixel_centres(num_tiles, tiles_per_row, device):
     return px.to(torch.float32), py.to(torch.float32)
 
 
+def _alpha_exp(cols, k, px, py):
+    """exp(exponent) of key k[t] at every pixel of tile t, and dx, dy."""
+    u, v, ca, cb, cc, logw = (x[k][:, None] for x in cols[:6])
+    dx = px - u
+    dy = py - v
+    return torch.exp(-0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+                     + logw), dx, dy
+
+
 def blend_forward_torch(point_data, tile_starts, tile_ends, *,
                         num_tiles, tiles_per_row, rgb_only):
     """Plain PyTorch version of the blend kernel, same inputs and output.
@@ -123,7 +246,8 @@ def blend_forward_torch(point_data, tile_starts, tile_ends, *,
     key position j within each tile's segment, up to the longest segment,
     gathering key j of every tile at once."""
     device = point_data.device
-    u, v, ca, cb, cc, logw, cr, cg, cbc, dep = _slab_columns(point_data)
+    cols = _slab_columns(point_data)
+    cr, cg, cbc, dep = cols[6:]
     starts = tile_starts.long()
     seg_len = (tile_ends - tile_starts).long()
     px, py = _pixel_centres(num_tiles, tiles_per_row, device)
@@ -142,10 +266,7 @@ def blend_forward_torch(point_data, tile_starts, tile_ends, *,
         def col(x):
             return x[k][:, None]
 
-        dx = px - col(u)
-        dy = py - col(v)
-        alpha = torch.exp(-0.5 * (col(ca) * dx * dx + col(cc) * dy * dy)
-                          - col(cb) * dx * dy + col(logw))
+        alpha = _alpha_exp(cols, k, px, py)[0]
         live = in_seg & ~done & (alpha >= ALPHA_SKIP_THRESHOLD)
         alpha = torch.clamp(alpha, max=ALPHA_CLAMP)
         t_next = T * (1.0 - alpha)
@@ -223,16 +344,25 @@ def blend_forward(point_data, tile_starts, tile_ends, *,
                            f"got {device}")
     from ._build import load_library
     lib = load_library()
+    mk = point_data.shape[1]
+    work, counters = _work_scratch(num_tiles, mk, device)
     out = torch.empty((num_tiles, 8, PIXELS_PER_TILE), dtype=torch.float32,
                       device=device)
+    # per item of a split tile: T_chunk, and the partials
+    scratch = max(work.num_split_items, 1)
+    tchunk = torch.empty((scratch, PIXELS_PER_TILE), dtype=torch.float32,
+                         device=device)
+    partial = torch.empty((scratch, PARTIAL_ROWS, PIXELS_PER_TILE),
+                          dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.t3dgs_blend_forward(
             point_data.data_ptr(), tile_starts.data_ptr(),
-            tile_ends.data_ptr(), out.data_ptr(), point_data.shape[1],
-            num_tiles, tiles_per_row,
-            int(point_data.shape[0] == PACKED_DATA_ROWS), int(rgb_only),
-            stream)
+            tile_ends.data_ptr(), num_tiles, CHUNK_KEYS, work.items.data_ptr(),
+            work.num_items, work.num_split_items, counters.data_ptr(),
+            tchunk.data_ptr(), partial.data_ptr(), out.data_ptr(), mk,
+            tiles_per_row, int(point_data.shape[0] == PACKED_DATA_ROWS),
+            int(rgb_only), stream)
     if err != 0:
         raise RuntimeError(f"blend_forward kernel launch failed: CUDA error "
                            f"{err}")
@@ -241,39 +371,51 @@ def blend_forward(point_data, tile_starts, tile_ends, *,
 
 
 def blend_backward_torch(point_data, tile_starts, tile_ends, pixel_in, *,
-                         num_tiles, tiles_per_row):
+                         num_tiles, tiles_per_row, dtype=torch.float32):
     """Plain PyTorch version of the backward kernel, same inputs and outputs.
 
     Replays the forward per pixel (vectorised over all (num_tiles, 256)
     pixels, one Python iteration per key position of the longest segment)
-    and takes, for each key i a pixel's blend reached:
+    over the keys the forward blended: not skipped (alpha >= 1/255) and
+    below the forward's `last` (pixel_in row 6; for the sequential forward
+    every key between the last contributing key and the saturating one is
+    skipped, so no saturation test is needed). For each such key i:
       dL/dalpha_i = c_i.g T_i - (S - P_i) / (1 - alpha_i), with S = g.C and
       P_i = sum_{j<=i} w_j c_j.g;
       G = dL/dalpha_i * exp(exponent): straight through the 0.99 clamp; 0
-      for skipped, saturating and later keys.
+      for the other keys.
     Written out by hand: autograd through `blend_forward_torch` would zero
     the gradient of a clamped alpha instead of passing it through.
 
-    Returns (grad_data (16, MK) f32 with rows GROW_*, each a sum over the
-    tile's pixels, and (num_tiles, 8, 256) f32 with rows [sum |gx|,
-    sum |gy|, 0, ...])."""
+    `dtype` is the float type the gradients are computed and summed in.
+    Which keys contribute is decided in float32 whatever it is, so
+    torch.float64 gives, for the same contributing keys, a reference for
+    the float32 rounding of this version and of the kernel.
+
+    Returns (grad_data (16, MK) with rows GROW_*, each a sum over the
+    tile's pixels, and (num_tiles, 8, 256) with rows [sum |gx|, sum |gy|,
+    0, ...]), both of `dtype`."""
     device = point_data.device
-    u, v, ca, cb, cc, logw, cr, cg, cbc, _ = _slab_columns(point_data)
+    cols32 = _slab_columns(point_data)
+    cols = tuple(x.to(dtype) for x in cols32)
+    cr, cg, cbc = cols[6:9]
     starts = tile_starts.long()
     seg_len = (tile_ends - tile_starts).long()
-    px, py = _pixel_centres(num_tiles, tiles_per_row, device)
+    px32, py32 = _pixel_centres(num_tiles, tiles_per_row, device)
+    px, py = px32.to(dtype), py32.to(dtype)
+    last = pixel_in[:, PIXEL_IN_LAST]
+    pixel_in = pixel_in.to(dtype)
     g_r, g_g, g_b = pixel_in[:, 0], pixel_in[:, 1], pixel_in[:, 2]
     S = g_r * pixel_in[:, 3] + g_g * pixel_in[:, 4] + g_b * pixel_in[:, 5]
 
     shape = (num_tiles, PIXELS_PER_TILE)
-    T = torch.ones(shape, dtype=torch.float32, device=device)
-    done = torch.zeros(shape, dtype=torch.bool, device=device)
-    prefix = torch.zeros(shape, dtype=torch.float32, device=device)
-    mag = torch.zeros((2,) + shape, dtype=torch.float32, device=device)
-    grad = torch.zeros((NUM_DATA_ROWS, point_data.shape[1]),
-                       dtype=torch.float32, device=device)
+    T = torch.ones(shape, dtype=dtype, device=device)
+    prefix = torch.zeros(shape, dtype=dtype, device=device)
+    mag = torch.zeros((2,) + shape, dtype=dtype, device=device)
+    grad = torch.zeros((NUM_DATA_ROWS, point_data.shape[1]), dtype=dtype,
+                       device=device)
     rows = torch.tensor(GRAD_ROWS, device=device)
-    zero = torch.zeros(shape, dtype=torch.float32, device=device)
+    zero = torch.zeros(shape, dtype=dtype, device=device)
     max_len = int(seg_len.max()) if num_tiles else 0
     for j in range(max_len):
         in_seg = j < seg_len
@@ -282,34 +424,32 @@ def blend_backward_torch(point_data, tile_starts, tile_ends, pixel_in, *,
         def col(x):
             return x[k][:, None]
 
-        dx = px - col(u)
-        dy = py - col(v)
-        alpha_exp = torch.exp(-0.5 * (col(ca) * dx * dx + col(cc) * dy * dy)
-                              - col(cb) * dx * dy + col(logw))
-        live = in_seg[:, None] & ~done & (alpha_exp >= ALPHA_SKIP_THRESHOLD)
+        alpha_exp, dx, dy = _alpha_exp(cols, k, px, py)
+        alpha32 = alpha_exp if dtype == torch.float32 else _alpha_exp(
+            cols32, k, px32, py32)[0]
+        contrib = (in_seg[:, None] & (k[:, None].to(torch.float32) < last)
+                   & (alpha32 >= ALPHA_SKIP_THRESHOLD))
         alpha = torch.clamp(alpha_exp, max=ALPHA_CLAMP)
         t_next = T * (1.0 - alpha)
-        saturates = live & (t_next < TRANSMITTANCE_SATURATION)
-        contrib = live & ~saturates
-        done = done | saturates
         cg_px = col(cr) * g_r + col(cg) * g_g + col(cbc) * g_b
         w = torch.where(contrib, alpha * T, zero)
         prefix = prefix + cg_px * w
         G = torch.where(contrib, (cg_px * T - (S - prefix) / (1.0 - alpha))
                         * alpha_exp, zero)
-        gx = G * (col(ca) * dx + col(cb) * dy)
-        gy = G * (col(cc) * dy + col(cb) * dx)
+        ca, cb, cc = col(cols[2]), col(cols[3]), col(cols[4])
+        gx = G * (ca * dx + cb * dy)
+        gy = G * (cc * dy + cb * dx)
         per_pixel = torch.stack([
             gx, gy, -0.5 * G * dx * dx, -G * dx * dy, -0.5 * G * dy * dy, G,
             g_r * w, g_g * w, g_b * w, torch.sqrt(gx * gx + gy * gy),
-            contrib.to(torch.float32)])                  # (11, T, 256)
+            contrib.to(dtype)])                          # (11, T, 256)
         sums = per_pixel.sum(dim=2)                      # (11, T)
         grad[rows[:, None], k[in_seg][None, :]] = sums[:, in_seg]
         mag = mag + torch.stack([gx.abs(), gy.abs()])
         T = torch.where(contrib, t_next, T)
 
-    mag_image = torch.zeros((num_tiles, 8, PIXELS_PER_TILE),
-                            dtype=torch.float32, device=device)
+    mag_image = torch.zeros((num_tiles, 8, PIXELS_PER_TILE), dtype=dtype,
+                            device=device)
     mag_image[:, 0:2] = mag.permute(1, 0, 2)
     return grad, mag_image
 
@@ -321,6 +461,10 @@ def _check_backward_inputs(point_data, tile_starts, tile_ends, pixel_in,
         raise ValueError(f"the backward takes the ({NUM_DATA_ROWS}, MK) f32 "
                          f"wide16 slab, got {point_data.dtype} "
                          f"{tuple(point_data.shape)}")
+    if point_data.shape[1] >= MAX_BACKWARD_COLUMNS:
+        raise ValueError(f"the backward takes fewer than 2**24 slab columns "
+                         f"(the forward's `last` is exact as a float only "
+                         f"below), got {point_data.shape[1]}")
     _check_inputs(point_data, tile_starts, tile_ends, num_tiles, False)
     if (pixel_in.dtype != torch.float32
             or tuple(pixel_in.shape) != (num_tiles, 8, PIXELS_PER_TILE)):
@@ -338,8 +482,9 @@ def blend_backward(point_data, tile_starts, tile_ends, pixel_in, *,
                    num_tiles, tiles_per_row):
     """Backward of the full blend. point_data: the (16, MK) f32 wide16 slab
     the forward blended; tile_starts/ends: (num_tiles,) int32; pixel_in:
-    (num_tiles, 8, 256) f32 with rows [g_r, g_g, g_b, C_r, C_g, C_b, 0, 0]
-    (image cotangent, forward colour); all contiguous.
+    (num_tiles, 8, 256) f32 with rows [g_r, g_g, g_b, C_r, C_g, C_b, last,
+    0] (image cotangent, forward colour, the forward's OUT_LAST_EFF row);
+    all contiguous; fewer than 2**24 slab columns.
 
     Returns (grad_data (16, MK) f32, GROW_* rows; mag_image (num_tiles, 8,
     256) f32, rows [sum |gx|, sum |gy|, 0, ...]).
@@ -358,17 +503,24 @@ def blend_backward(point_data, tile_starts, tile_ends, pixel_in, *,
                            f"got {device}")
     from ._build import load_library
     lib = load_library()
-    grad = torch.zeros((NUM_DATA_ROWS, point_data.shape[1]),
-                       dtype=torch.float32, device=device)
+    mk = point_data.shape[1]
+    work, counters = _work_scratch(num_tiles, mk, device)
+    grad = torch.zeros((NUM_DATA_ROWS, mk), dtype=torch.float32,
+                       device=device)
     mag = torch.empty((num_tiles, 8, PIXELS_PER_TILE), dtype=torch.float32,
                       device=device)
+    # per item of a split tile: (T_chunk, Q_chunk) and (sum |gx|, sum |gy|)
+    tq, mag_part = torch.empty((2, max(work.num_split_items, 1), 2,
+                                PIXELS_PER_TILE), dtype=torch.float32,
+                               device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.t3dgs_blend_backward(
             point_data.data_ptr(), tile_starts.data_ptr(),
-            tile_ends.data_ptr(), pixel_in.data_ptr(), grad.data_ptr(),
-            mag.data_ptr(), point_data.shape[1], num_tiles, tiles_per_row,
-            stream)
+            tile_ends.data_ptr(), num_tiles, CHUNK_KEYS, work.items.data_ptr(),
+            work.num_items, work.num_split_items, counters.data_ptr(),
+            pixel_in.data_ptr(), tq.data_ptr(), mag_part.data_ptr(),
+            grad.data_ptr(), mag.data_ptr(), mk, tiles_per_row, stream)
     if err != 0:
         raise RuntimeError(f"blend_backward kernel launch failed: CUDA error "
                            f"{err}")

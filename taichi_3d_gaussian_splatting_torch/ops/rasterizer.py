@@ -210,13 +210,21 @@ def _result_from_tile_out(tile_out, attrs, binning, camera_info):
         aux=aux)
 
 
+def _backward_pixel_in(tile_out, g_image, grid: TileGrid):
+    """The backward kernel's per-pixel input (T, 8, 256): the image
+    cotangent, the forward's colour and its `last` row, then 0."""
+    g_tiles = _image_to_tiles(g_image.to(torch.float32), grid)  # (T, 3, 256)
+    tile_out = tile_out.detach()
+    return torch.cat([g_tiles, tile_out[:, 0:3],
+                      tile_out[:, BC.OUT_LAST_EFF:BC.OUT_LAST_EFF + 1],
+                      torch.zeros_like(g_tiles[:, 0:1])],
+                     dim=1).contiguous()
+
+
 def _backward_blend(tile_out, g_image, binning, grid: TileGrid):
     """The backward kernel on the image cotangent: (per-key gradient slab
     (16, MK), per-pixel magnitude tiles (T, 8, 256))."""
-    g_tiles = _image_to_tiles(g_image.to(torch.float32), grid)  # (T, 3, 256)
-    pixel_in = torch.cat([g_tiles, tile_out[:, 0:3].detach(),
-                          torch.zeros_like(g_tiles[:, 0:2])],
-                         dim=1).contiguous()                    # (T, 8, 256)
+    pixel_in = _backward_pixel_in(tile_out, g_image, grid)
     return BC.blend_backward(
         binning.point_data, binning.tile_starts, binning.tile_ends, pixel_in,
         num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row)

@@ -4,7 +4,9 @@ backward kernel (blend_pallas.blend_backward), run in interpret mode on the
 CPU, on the same numpy inputs: the port's wide16 slab of each ab fixture,
 padded with zero columns to a multiple of the Pallas chunk (128), its tile
 ranges, and per pixel a seeded normal image cotangent beside the colour of
-the Pallas forward.
+the Pallas forward; the port's pixel_in also carries the Pallas forward's
+`last` row in row 6 (the JAX kernel ignores rows 6-7 and re-tests
+saturation; the port blends the keys below `last`).
 
 Per-key gradient rows and the magnitude image at rtol 2e-3 / atol 1e-4
 (the exactness tolerances: the two replays round the exponent and the
@@ -37,8 +39,9 @@ FLOAT_ROWS = {"du": BC.GROW_DU, "dv": BC.GROW_DV, "da": BC.GROW_DA,
 
 
 def _inputs(seed, alpha, cfg):
-    """(slab padded to a multiple of 128, starts, ends, pixel_in, tile
-    kwargs, Pallas forward output), numpy."""
+    """(slab padded to a multiple of 128, starts, ends, pixel_in of the
+    JAX kernel, tile kwargs, Pallas forward output, pixel_in of the port),
+    numpy."""
     pc, feats = random_scene(60, seed=seed, alpha=alpha)
     scene = GaussianPointCloudScene.from_numpy(pc, feats, np.zeros(60),
                                                np.zeros(60))
@@ -58,19 +61,22 @@ def _inputs(seed, alpha, cfg):
     pixel_in = np.zeros((cam.num_tiles, 8, 256), np.float32)
     pixel_in[:, 0:3] = rng.normal(size=(cam.num_tiles, 3, 256))
     pixel_in[:, 3:6] = fwd[:, 0:3]
-    return slab, starts, ends, pixel_in, kw, fwd
+    port_pixel_in = pixel_in.copy()
+    port_pixel_in[:, BC.PIXEL_IN_LAST] = fwd[:, BC.OUT_LAST_EFF]
+    return slab, starts, ends, pixel_in, kw, fwd, port_pixel_in
 
 
 @pytest.mark.parametrize("seed, alpha, label, cfg", AB_CASES,
                          ids=[c[2] for c in AB_CASES])
 def test_plain_backward_matches_pallas(seed, alpha, label, cfg):
-    slab, starts, ends, pixel_in, kw, fwd = _inputs(seed, alpha, cfg)
+    slab, starts, ends, pixel_in, kw, fwd, port_pixel_in = _inputs(
+        seed, alpha, cfg)
     ref_grad, ref_mag = (np.asarray(x) for x in BP.blend_backward(
         jnp.asarray(slab), jnp.asarray(starts), jnp.asarray(ends),
         jnp.asarray(pixel_in), **kw))
     got_grad, got_mag = (x.numpy() for x in BC.blend_backward_torch(
         torch.as_tensor(slab), torch.as_tensor(starts),
-        torch.as_tensor(ends), torch.as_tensor(pixel_in), **kw))
+        torch.as_tensor(ends), torch.as_tensor(port_pixel_in), **kw))
     assert got_grad.shape == ref_grad.shape == slab.shape
     assert got_mag.shape == ref_mag.shape == (kw["num_tiles"], 8, 256)
     for name, row in FLOAT_ROWS.items():
@@ -92,8 +98,8 @@ def test_plain_backward_matches_pallas(seed, alpha, label, cfg):
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
-    slab, starts, ends, pixel_in, kw, _ = _inputs(*AB_CASES[0][:2],
-                                                  AB_CASES[0][3])
+    slab, starts, ends, _, kw, _, pixel_in = _inputs(*AB_CASES[0][:2],
+                                                     AB_CASES[0][3])
     args = tuple(torch.as_tensor(x) for x in (slab, starts, ends, pixel_in))
     BC.reset_launch_counts()
     got = BC.blend_backward(*args, **kw)
@@ -129,3 +135,16 @@ def test_backward_rejects_malformed_inputs(bad):
     with pytest.raises((ValueError, TypeError)):
         BC.blend_backward(slab, starts, ends, pixel_in, num_tiles=2,
                           tiles_per_row=2)
+
+
+@pytest.mark.parametrize("columns", [BC.MAX_BACKWARD_COLUMNS,
+                                     BC.MAX_BACKWARD_COLUMNS + 5])
+def test_backward_refuses_2_24_columns(columns):
+    """The forward's `last` reaches the backward as a float, exact only
+    below 2**24 columns: the wrapper raises rather than round it (a view of
+    one column, so nothing large is allocated)."""
+    slab = torch.zeros((16, 1)).expand(16, columns)
+    ranges = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"2\*\*24"):
+        BC.blend_backward(slab, ranges, ranges, torch.zeros((2, 8, 256)),
+                          num_tiles=2, tiles_per_row=2)

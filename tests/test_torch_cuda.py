@@ -21,6 +21,8 @@ from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
     RasterizerConfig, _project_and_bin, rasterize)
 from taichi_3d_gaussian_splatting_torch.ops.tiling import blend_slab
 
+from torch_chunk_fixtures import (NUM_TILES, TILES_PER_ROW,
+                                  long_segment_slab)
 from torch_port_fixtures import (AB_CASES, ATOL, RTOL, assert_counts_close,
                                  camera_intrinsics, identity_pose,
                                  random_scene)
@@ -112,6 +114,7 @@ def test_backward_kernel_matches_plain(cuda, seed, alpha, label, cfg):
         rng.normal(size=(cam.num_tiles, 3, 256)).astype(np.float32),
         device=cuda)
     pixel_in[:, 3:6] = fwd[:, 0:3]
+    pixel_in[:, BC.PIXEL_IN_LAST] = fwd[:, BC.OUT_LAST_EFF]
     args = (slabs["wide16"], b.tile_starts, b.tile_ends, pixel_in)
     before = BC.launch_counts["blend_backward"]
     got = [x.cpu().numpy() for x in BC.blend_backward(*args, **kw)]
@@ -123,6 +126,64 @@ def test_backward_kernel_matches_plain(cuda, seed, alpha, label, cfg):
                                rtol=RTOL, atol=ATOL)
     assert_counts_close(ref[0][BC.GROW_NUM_PIXELS], got[0][BC.GROW_NUM_PIXELS])
     np.testing.assert_allclose(got[1], ref[1], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("fmt, rgb_only", [("packed8", True),
+                                           ("wide16", True),
+                                           ("wide16", False)])
+def test_split_tiles_match_plain(cuda, fmt, rgb_only):
+    """Tiles of several chunks (tests/torch_chunk_fixtures.py, at the
+    kernels' chunk length): the chunked forward and backward kernels
+    against the sequential plain versions."""
+    slabs, starts, ends = long_segment_slab(BC.CHUNK_KEYS)
+    kw = dict(num_tiles=NUM_TILES, tiles_per_row=TILES_PER_ROW)
+    args = (slabs[fmt].to(cuda), starts.to(cuda), ends.to(cuda))
+    got = BC.blend_forward(*args, rgb_only=rgb_only, **kw).cpu().numpy()
+    ref = BC.blend_forward_torch(*args, rgb_only=rgb_only, **kw)
+    refn = ref.cpu().numpy()
+    for row in (BC.OUT_R, BC.OUT_G, BC.OUT_B, BC.OUT_ACC_ALPHA, BC.OUT_NORM):
+        np.testing.assert_allclose(got[:, row], refn[:, row], rtol=RTOL,
+                                   atol=ATOL)
+    if rgb_only:
+        return
+    for row in (BC.OUT_COUNT, BC.OUT_LAST_EFF):
+        assert_counts_close(refn[:, row], got[:, row])
+    rng = np.random.default_rng(3)
+    pixel_in = torch.zeros((NUM_TILES, 8, 256), device=cuda)
+    pixel_in[:, 0:3] = torch.as_tensor(
+        rng.normal(size=(NUM_TILES, 3, 256)).astype(np.float32), device=cuda)
+    pixel_in[:, 3:6] = ref[:, 0:3]
+    pixel_in[:, BC.PIXEL_IN_LAST] = ref[:, BC.OUT_LAST_EFF]
+    bargs = args + (pixel_in,)
+    got = [x.cpu().numpy() for x in BC.blend_backward(*bargs, **kw)]
+    want = [x.cpu().numpy() for x in BC.blend_backward_torch(*bargs, **kw)]
+    float_rows = [r for r in BC.GRAD_ROWS if r != BC.GROW_NUM_PIXELS]
+    np.testing.assert_allclose(got[0][float_rows], want[0][float_rows],
+                               rtol=RTOL, atol=ATOL)
+    assert_counts_close(want[0][BC.GROW_NUM_PIXELS],
+                        got[0][BC.GROW_NUM_PIXELS])
+    np.testing.assert_allclose(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+def test_work_list_kernel_matches_plain(cuda):
+    """The work-list kernel against its plain version (integers, exactly):
+    lengths 0, 1, C, C + 1, 3C + 7 and more, malformed ranges, and a grid
+    of more tiles than the builder has threads."""
+    c = BC.CHUNK_KEYS
+    lengths = [0, 1, c, c + 1, 3 * c + 7, 0, c - 1, 2 * c]
+    ends = np.cumsum(lengths)
+    cases = [(ends - np.array(lengths), ends, int(ends[-1]) + 5),
+             (np.array([-5, 3, 9]), np.array([2, 4000, 4]), 1000)]
+    rng = np.random.default_rng(0)
+    big = rng.integers(0, 3 * c, 5000)
+    cases.append((np.cumsum(big) - big, np.cumsum(big), int(big.sum())))
+    for starts, ends, mk in cases:
+        s = torch.as_tensor(starts.astype(np.int32))
+        e = torch.as_tensor(ends.astype(np.int32))
+        got = BC.build_work_list(s.to(cuda), e.to(cuda), mk)
+        want = BC.chunk_work_list(s, e, mk)
+        assert got[1:] == want[1:]
+        assert torch.equal(got.items.cpu(), want.items)
 
 
 def test_training_step_on_card_matches_cpu(cuda, tmp_path):

@@ -133,3 +133,21 @@ def test_cuda_launch_without_cuda_raises(monkeypatch):
     assert BC.launch_counts == NO_LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library()
+
+
+def test_card_fixtures_import_no_jax():
+    """chip_smoke.py's helpers from tests/ run where JAX is absent."""
+    code = ("import sys\n"
+            "import torch_port_fixtures, torch_train_fixtures, "
+            "torch_chunk_fixtures\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') "
+            "or m.startswith('taichi_3d_gaussian_splatting_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "ok"
