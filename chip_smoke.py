@@ -37,7 +37,18 @@ Phases (any failure exits non-zero; nothing is caught):
      densify every 10 after a 10-step warm-up and one validation; the
      kernels' launch counts are read over this phase only. Then the mean
      step time, a per-stage breakdown of a step and the densify time, and
-     one 32x32 step on the card against the same step on the CPU.
+     one 32x32 step on the card against the same step on the CPU;
+  6. batch training: the same dataset with batch_size 4 under a one-rank
+     NCCL process group (parallel/sharding.py, its collectives included),
+     the schedules divided by 4 (warm-up and densify interval 24 -> 6),
+     12 iterations with one densify and one validation; the kernels'
+     launch counts are read over this run (K2 and K3 once per view). Then
+     the batch step's time per step and per view and its stages;
+  6b. two 32x32 batch steps of two views on the card against the same on
+     the CPU (no process group);
+  7. the viewer: `VisualizerState` on the 430k scene at 976x544, split
+     into two objects; frames after a camera key, an object key and a
+     hide, K1's launches over them, the PNGs decoded, the frame time.
 
 The second-to-last line is a JSON object describing each kernel at the
 main path's shapes (430k scene; launches from phases 4 and 5): its time,
@@ -47,6 +58,7 @@ torch_chunk_fixtures.py work), the pairs it evaluates, and library_ms null
 Needs no network and imports no JAX.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,6 +78,13 @@ BACKWARD_SOURCE = "taichi_3d_gaussian_splatting_torch/csrc/blend_backward.cu"
 TPU_BACKWARD_KERNEL = "taichi_3d_gaussian_splatting_tpu/ops/blend_pallas.py:430"
 TRAIN_ITERATIONS = 30
 TIMED_STEPS = 10
+BATCH_SIZE = 4
+BATCH_ITERATIONS = 12
+# warm-up and densify interval of the batch run before the division by
+# BATCH_SIZE: one densify, at iteration 6, then 5 steps after it
+BATCH_DENSIFY_EVERY = 24
+TIMED_BATCH_STEPS = 5
+VIEWER_FRAMES = 20
 
 
 def fail(msg):
@@ -139,9 +158,10 @@ def write_training_set(root, pc, feats, cam):
     return paths
 
 
-def make_trainer(root, scene_arrays, cam):
-    """The port's trainer on the card, on a 4-view dataset of
-    `scene_arrays` at the camera's size written under `root`."""
+def make_trainer(paths, logs, densify_every=10, **overrides):
+    """The port's trainer on the card, on the dataset of
+    write_training_set (`paths`), logging to `logs`, with densify every
+    `densify_every` iterations after as many of warm-up."""
     from taichi_3d_gaussian_splatting_torch.models.scene import SceneConfig
     from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
         RasterizerConfig)
@@ -151,8 +171,7 @@ def make_trainer(root, scene_arrays, cam):
         LossFunctionConfig)
     from taichi_3d_gaussian_splatting_torch.training.trainer import (
         GaussianPointCloudTrainer, TrainConfig)
-    train_json, val_json, init = write_training_set(root, *scene_arrays, cam)
-    logs = os.path.join(root, "logs")
+    train_json, val_json, init = paths
     # Tanks and Temples Truck's hyperparameters (config/tat_truck.yaml),
     # with its schedules cut to a 30-step run
     config = TrainConfig(
@@ -165,7 +184,8 @@ def make_trainer(root, scene_arrays, cam):
         rasterisation_config=RasterizerConfig(
             near_plane=0.4, far_plane=1000.0, depth_to_sort_key_scale=10.0),
         adaptive_controller_config=AdaptiveControllerConfig(
-            num_iterations_warm_up=10, num_iterations_densify=10,
+            num_iterations_warm_up=densify_every,
+            num_iterations_densify=densify_every,
             num_iterations_reset_alpha=10 ** 6,
             densification_view_space_position_gradients_threshold=4e-6,
             transparent_alpha_threshold=-2.0,
@@ -175,25 +195,76 @@ def make_trainer(root, scene_arrays, cam):
             max_num_points_ratio=2.0, initial_alpha=0.0,
             initial_covariance_ratio=0.1, max_initial_covariance=3000.0),
         loss_function_config=LossFunctionConfig(enable_regularization=False))
+    for key, value in overrides.items():
+        setattr(config, key, value)
     return GaussianPointCloudTrainer(config, device="cuda")
 
 
-def train_phase(root, scene_arrays, cam, card, fail):
-    """Train the port on a 4-view dataset of `scene_arrays` at the camera's
-    size; check the run; time steps, stages and densify. Returns the
-    kernel launch counts of the training run."""
+def check_run(logs, iterations, fail):
+    """The metrics of a finished run: one finite loss per iteration, the
+    last below the first, densify ran, the parquets load back finite.
+    Returns (losses, validation PSNR)."""
     import torch
     from taichi_3d_gaussian_splatting_torch.models.scene import (
         GaussianPointCloudScene)
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    if len(losses) != iterations or not np.isfinite(losses).all():
+        fail(f"training losses missing or not finite: {losses}")
+    densified = [r for r in records if "densify/num_fillable" in r]
+    for r in densified:
+        print(f"densify at iteration {r['iteration']}: " + ", ".join(
+            f"{k.split('/')[1]} {int(v)}" for k, v in r.items()
+            if k != "iteration"), flush=True)
+    if not densified:
+        fail("densify never ran")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: first {losses[0]}, last {losses[-1]}")
+    for name in (f"scene_{iterations}.parquet", "best_scene.parquet"):
+        scene = GaussianPointCloudScene.from_parquet(os.path.join(logs, name))
+        if (scene.num_valid_points() == 0 or not bool(torch.isfinite(
+                scene.point_cloud_features).all())):
+            fail(f"{name} does not load back as a finite scene")
+    return losses, [r for r in records if "val/psnr" in r][-1]["val/psnr"]
+
+
+def staged_step_ms(step, reps):
+    """Device ms per stage of `step(mark)`, summed over a step's views and
+    averaged over `reps` steps, by CUDA events at each mark."""
+    import torch
+    stage_ms = {}
+    for _ in range(reps):
+        events = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((stage, ev))
+
+        mark("start")
+        out = step(mark)
+        torch.cuda.synchronize()
+        for (_, a), (stage, b) in zip(events, events[1:]):
+            stage_ms[stage] = (stage_ms.get(stage, 0.0)
+                               + a.elapsed_time(b) / reps)
+    return stage_ms, out
+
+
+def train_phase(paths, root, card, fail):
+    """Train the port for TRAIN_ITERATIONS on the dataset of
+    write_training_set; check the run; time steps, stages and densify.
+    Returns the kernel launch counts of the training run."""
+    import torch
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops.rasterizer import _no_mark
     from taichi_3d_gaussian_splatting_torch.training.controller import (
         densify_step)
 
     t0 = time.perf_counter()
-    trainer = make_trainer(root, scene_arrays, cam)
+    logs = os.path.join(root, "logs")
+    trainer = make_trainer(paths, logs)
     config = trainer.config
-    logs = config.summary_writer_log_dir
     print(f"training set and trainer ready in "
           f"{time.perf_counter() - t0:.1f} s: {trainer.scene.capacity} "
           f"slots, {trainer.scene.num_valid_points()} valid", flush=True)
@@ -210,38 +281,21 @@ def train_phase(root, scene_arrays, cam, card, fail):
             or launches["blend_backward"] < TRAIN_ITERATIONS):
         fail(f"training did not launch K2 and K3 once per step: {launches}")
 
-    with open(os.path.join(logs, "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
-    losses = [r["train/loss"] for r in records if "train/loss" in r]
-    if len(losses) != TRAIN_ITERATIONS or not np.isfinite(losses).all():
-        fail(f"training losses missing or not finite: {losses}")
-    densified = [r for r in records if "densify/num_fillable" in r]
-    for r in densified:
-        print(f"densify at iteration {r['iteration']}: " + ", ".join(
-            f"{k.split('/')[1]} {int(v)}" for k, v in r.items()
-            if k != "iteration"), flush=True)
-    if not densified:
-        fail("densify never ran")
-    if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall: first {losses[0]}, last {losses[-1]}")
-    val = [r for r in records if "val/psnr" in r]
-    for name in (f"scene_{TRAIN_ITERATIONS}.parquet", "best_scene.parquet"):
-        scene = GaussianPointCloudScene.from_parquet(os.path.join(logs, name))
-        if (scene.num_valid_points() == 0 or not bool(torch.isfinite(
-                scene.point_cloud_features).all())):
-            fail(f"{name} does not load back as a finite scene")
+    losses, psnr = check_run(logs, TRAIN_ITERATIONS, fail)
     print(f"training [{W}x{H}, 430k synthetic, 4 views]: "
           f"{TRAIN_ITERATIONS} iterations in {train_s:.2f} s, loss "
           f"{losses[0]:.5f} -> {losses[-1]:.5f}, validation PSNR "
-          f"{val[-1]['val/psnr']:.3f}, {trainer.scene.num_valid_points()} "
+          f"{psnr:.3f}, {trainer.scene.num_valid_points()} "
           f"valid points after densify ({card})", flush=True)
 
     # step time, stage breakdown and densify time on the trained state
     cache = trainer._device_cache(trainer.train_dataset, 1)
 
     def one_step(mark=_no_mark):
-        image, q, t, view_cam = trainer._next_view(cache, None, 1)
-        return trainer.step(image, q, t, 0, view_cam, mark=mark)
+        images, qs, ts, intrs, view_cam = trainer._next_views(cache, None, 1,
+                                                              1)
+        return trainer.step(images[0], qs[0], ts[0], 0, dataclasses.replace(
+            view_cam, camera_intrinsics=intrs[0]), mark=mark)
 
     for _ in range(5):
         one_step()
@@ -254,40 +308,185 @@ def train_phase(root, scene_arrays, cam, card, fail):
     end.record()
     end.synchronize()
     step_ms = start.elapsed_time(end) / TIMED_STEPS
-    stage_ms = {}
-    for _ in range(5):
-        events = []
-
-        def mark(stage):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((stage, ev))
-
-        mark("start")
-        out = one_step(mark)
-        torch.cuda.synchronize()
-        for (_, a), (stage, b) in zip(events, events[1:]):
-            stage_ms[stage] = stage_ms.get(stage, 0.0) + a.elapsed_time(b) / 5
-    aux = out.result.aux
+    stage_ms, out = staged_step_ms(one_step, 5)
+    stats, in_frustum, point_depth, _ = out.densify_inputs
     pos_before = trainer.scene.point_cloud.clone()
     densify_ms = []
     for _ in range(3):
         start.record()
-        densify_step(trainer.scene, trainer.ctrl_state, out.stats,
-                     aux.in_frustum, aux.point_depth, pos_before, 100,
-                     trainer.generator, config.adaptive_controller_config)
+        densify_step(trainer.scene, trainer.ctrl_state, stats, in_frustum,
+                     point_depth, pos_before, 100, trainer.generator,
+                     config.adaptive_controller_config)
         end.record()
         end.synchronize()
         densify_ms.append(start.elapsed_time(end))
     print(f"training step [{W}x{H}, {trainer.scene.capacity} slots, "
-          f"{int(aux.total_keys)} keys]: {step_ms:.4f} ms/step over "
-          f"{TIMED_STEPS} steps after 5 warm-up steps; densify "
+          f"{int(out.metrics['total_keys'])} keys]: {step_ms:.4f} ms/step "
+          f"over {TIMED_STEPS} steps after 5 warm-up steps; densify "
           f"{np.mean(densify_ms):.4f} ms ({card})", flush=True)
     print("  step stages ms: " + ", ".join(f"{k} {v:.4f}"
                                            for k, v in stage_ms.items()),
           flush=True)
     trainer.logger.close()
     return launches
+
+
+def batch_train_phase(paths, root, card, fail):
+    """Train with batch_size BATCH_SIZE under a one-rank NCCL process group
+    for BATCH_ITERATIONS; check the run and the kernels' launches; time the
+    batch step and its stages. Returns the launch counts of the run."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+    from taichi_3d_gaussian_splatting_torch.ops.rasterizer import _no_mark
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(root, 'nccl_store')}",
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        logs = os.path.join(root, "batch_logs")
+        trainer = make_trainer(paths, logs, BATCH_DENSIFY_EVERY,
+                               batch_size=BATCH_SIZE,
+                               num_iterations=BATCH_ITERATIONS)
+        ctrl = trainer.config.adaptive_controller_config
+        if not (trainer.mesh.distributed and trainer.mesh.size == 1):
+            fail(f"the trainer is not on the process group: {trainer.mesh}")
+        print(f"batch training: batch_size {BATCH_SIZE}, warm-up "
+              f"{ctrl.num_iterations_warm_up}, densify every "
+              f"{ctrl.num_iterations_densify}, feature lr "
+              f"{trainer.config.feature_learning_rate:.6g}", flush=True)
+        BC.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(BC.launch_counts)
+        print(f"kernel launches during the {BATCH_ITERATIONS}-iteration "
+              f"batch run: {launches}", flush=True)
+        views = BATCH_SIZE * BATCH_ITERATIONS
+        if min(launches["blend_forward"], launches["blend_backward"]) < views:
+            fail(f"batch training did not launch K2 and K3 once per view "
+                 f"({views} views): {launches}")
+        losses, psnr = check_run(logs, BATCH_ITERATIONS, fail)
+        print("batch training losses: " + ", ".join(f"{x:.5f}"
+                                                    for x in losses),
+              flush=True)
+        print(f"batch training [{W}x{H}, 430k synthetic, {BATCH_SIZE} views "
+              f"a step]: {BATCH_ITERATIONS} iterations in {train_s:.2f} s, "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, validation PSNR "
+              f"{psnr:.3f}, {trainer.scene.num_valid_points()} valid points "
+              f"({card})", flush=True)
+
+        cache = trainer._device_cache(trainer.train_dataset, 1)
+
+        def batch_step(mark=_no_mark):
+            images, qs, ts, intrs, view_cam = trainer._next_views(
+                cache, None, 1, BATCH_SIZE)
+            return trainer.batch_step(images, qs, ts, intrs, 0, view_cam,
+                                      mark=mark)
+
+        for _ in range(2):
+            batch_step()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIMED_BATCH_STEPS):
+            batch_step()
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / TIMED_BATCH_STEPS
+        stage_ms, _ = staged_step_ms(batch_step, 2)
+        print(f"batch step [{W}x{H}, {trainer.scene.capacity} slots, "
+              f"{BATCH_SIZE} views, one rank]: {step_ms:.4f} ms/step, "
+              f"{step_ms / BATCH_SIZE:.4f} ms/view over {TIMED_BATCH_STEPS} "
+              f"steps after 2 warm-up steps ({card})", flush=True)
+        print("  batch step stages ms (summed over its views): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in stage_ms.items()), flush=True)
+        trainer.logger.close()
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def batch_step_cuda_vs_cpu(root, fail):
+    """Two 32x32 batch steps of two views from one state on the card and on
+    the CPU: every state array at rtol 2e-3 / atol 1e-4."""
+    import torch
+    import torch_port_fixtures as fx
+    from torch_train_fixtures import batch_step_state, write_dataset
+    write_dataset(root)
+    gpu = batch_step_state(torch.device("cuda"), root)
+    cpu = batch_step_state(torch.device("cpu"), root)
+    np.testing.assert_allclose(gpu["losses"], cpu["losses"], rtol=1e-4,
+                               err_msg="batch step losses")
+    worst = 0.0
+    for k, want in cpu["state"].items():
+        got = gpu["state"][k]
+        np.testing.assert_allclose(got, want, rtol=fx.RTOL, atol=fx.ATOL,
+                                   err_msg=f"batch step {k}")
+        worst = max(worst, float(np.abs(got.astype(np.float64) - want).max()))
+    print(f"32x32 batch steps (B=2) cuda vs cpu: losses {gpu['losses']} vs "
+          f"{cpu['losses']}, max |d state| {worst:.3g}", flush=True)
+
+
+def viewer_phase(root, pc, feats, card, fail):
+    """The port's viewer on the card over the scene split into two
+    objects: frames after a camera key, an object key and a hide; K1's
+    launches, the PNGs and the frame time."""
+    import io
+    import PIL.Image
+    import torch
+    from taichi_3d_gaussian_splatting_torch.models.scene import (
+        GaussianPointCloudScene)
+    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+    from taichi_3d_gaussian_splatting_torch.visualizer import VisualizerState
+
+    half = pc.shape[0] // 2
+    paths = []
+    for i, part in enumerate((slice(0, half), slice(half, None))):
+        n = pc[part].shape[0]
+        path = os.path.join(root, f"viewer_{i}.parquet")
+        GaussianPointCloudScene.from_numpy(pc[part], feats[part], np.zeros(n),
+                                           np.zeros(n)).to_parquet(path)
+        paths.append(path)
+    t0 = time.perf_counter()
+    state = VisualizerState(paths, W, H, FOCAL, device="cuda")
+    print(f"viewer ready in {time.perf_counter() - t0:.2f} s: "
+          f"{state.scene.capacity} points, {state.num_objects} objects",
+          flush=True)
+    BC.reset_launch_counts()
+    frames = {}
+    for key in ("", "w", "1", "d", "h"):
+        if key:
+            print(f"viewer key {key!r}: {state.handle_key(key)}", flush=True)
+        png = state.frame_png()
+        img = PIL.Image.open(io.BytesIO(png))
+        if img.size != (W, H):
+            fail(f"viewer PNG after {key!r} is {img.size}")
+        frames[key] = np.asarray(img, np.float32)
+    launches = dict(BC.launch_counts)
+    if launches["blend_forward_rgb"] < len(frames):
+        fail(f"the viewer's frames did not launch K1: {launches}")
+    if np.array_equal(frames["d"], frames["h"]) or not frames["h"].any():
+        fail("hiding object 1 did not change the frame, or blanked it")
+    for _ in range(3):
+        state.frame()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VIEWER_FRAMES):
+        state.frame()
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1000.0 / VIEWER_FRAMES
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state.frame_png()
+    png_ms = (time.perf_counter() - t0) * 1000.0 / 5
+    print(f"viewer [{W}x{H}, 430k synthetic in 2 objects, object 1 hidden]: "
+          f"{frame_ms:.4f} ms/frame over {VIEWER_FRAMES} frames, "
+          f"{png_ms:.4f} ms per PNG frame; K1 launches over 5 frames "
+          f"{launches['blend_forward_rgb']} ({card})", flush=True)
 
 
 def step_cuda_vs_cpu(root, fail):
@@ -758,12 +957,19 @@ def main():
 
     # ---- 5. training path -----------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches = train_phase(tmp, scenes["430k synthetic"], cam,
-                                     card, fail)
-        del scenes
+        paths = write_training_set(tmp, *scenes["430k synthetic"], cam)
+        train_launches = train_phase(paths, tmp, card, fail)
         small = os.path.join(tmp, "small")
         os.makedirs(small)
         step_cuda_vs_cpu(small, fail)
+        # ---- 6. batch training, 6b. the batch step card vs cpu ---------
+        batch_train_phase(paths, tmp, card, fail)
+        small_batch = os.path.join(tmp, "small_batch")
+        os.makedirs(small_batch)
+        batch_step_cuda_vs_cpu(small_batch, fail)
+        # ---- 7. the viewer ---------------------------------------------
+        viewer_phase(tmp, *scenes["430k synthetic"], card, fail)
+        del scenes
     launches["blend_backward"] = train_launches["blend_backward"]
 
     # no PyTorch call computes the blend: library_ms is null

@@ -1,6 +1,6 @@
 """The training loop: `GaussianPointCloudTrainer`, fed a `TrainConfig`.
 
-Each step, on one view:
+Each step, on one view (`view_gradients`):
 - re-normalize the stored quaternions (outside autograd);
 - render with `rasterize_with_vjp` (projection, binning, the forward blend
   kernel);
@@ -13,6 +13,15 @@ Each step, on one view:
   whole update (Adam moments and controller statistics included);
 - two Adam chains: features at `feature_learning_rate`, positions at
   `position_learning_rate * decay_rate ** ceil(count / decay_interval)`.
+
+With `batch_size` B > 1 a step takes B views through
+`parallel/sharding.py`: the views are split over the ranks of the
+torch.distributed process group (one rank without a group), gradients and
+controller statistics are summed over all B views, and densify takes the
+batch's last view. The iteration schedules are then divided by B and the
+learning rates multiplied by 1, sqrt(B) or B (`_scale_schedules_for_batch`);
+`scale_betas_with_batch` raises Adam's betas to the power B. Only rank 0
+writes metrics, parquets and checkpoints and runs the validation.
 
 Around the steps: densify every `num_iterations_densify` after warm-up
 from the trigger step's pre-optimizer positions, alpha reset every
@@ -29,8 +38,7 @@ it. Per-step metrics stay on the device and reach the host once per
 
 The same YAML files load as for the JAX package. Its capacity knobs are
 accepted and ignored (the port's binning has no budgets), and so are
-`enable_profiler` and its two settings. `batch_size > 1` (the multi-view
-data-parallel step) is not ported and raises.
+`enable_profiler` and its two settings.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import logging
 import math
 import os
 import time
@@ -54,6 +63,8 @@ from ..ops.rasterizer import (BackwardStats, RasterizeResult,
                               RasterizerConfig, _no_mark, rasterize,
                               rasterize_with_vjp)
 from ..ops.sh import feature_sh_band_mask
+from ..parallel.sharding import (make_data_parallel_train_step, make_mesh,
+                                 replicate_scene)
 from .adam import AdamState, adam_init, adam_update, exponential_decay_lr
 from .checkpoint import load_checkpoint, save_checkpoint
 from .controller import (AdaptiveControllerConfig, ControllerState,
@@ -104,7 +115,8 @@ class TrainConfig:
     recovery_tail_fraction: float = 0.02
     capacity_probe_ahead: bool = True
     capacity_probe_ahead_margin: float = 1.2
-    # multi-view data parallelism: only batch_size 1 is ported
+    # views per optimizer step, split over the ranks of the process group
+    # (a multiple of their number); mesh_devices 0 = the group's size
     batch_size: int = 1
     mesh_devices: int = 0
     scale_schedules_with_batch: bool = True
@@ -145,6 +157,123 @@ def _grad_group_scale(config: RasterizerConfig) -> np.ndarray:
     return scale
 
 
+def _scale_schedules_for_batch(config: TrainConfig) -> TrainConfig:
+    """A copy of `config` for `batch_size` B > 1: with
+    `scale_schedules_with_batch`, the iteration schedules (warm-up,
+    densify, alpha reset, floater start, SH unlock, downsample, position-LR
+    decay) divided by B (at least 1), so that they keep their cadence per
+    image; both learning rates times 1, sqrt(B) or B
+    (`scale_lr_with_batch` none / sqrt / linear). `num_iterations` and
+    `val_interval` stay as given."""
+    b = int(config.batch_size)
+    if b <= 1:
+        return config
+    lr_mult = {"none": 1.0, "sqrt": float(b) ** 0.5,
+               "linear": float(b)}[config.scale_lr_with_batch]
+    lrs = dict(feature_learning_rate=config.feature_learning_rate * lr_mult,
+               position_learning_rate=config.position_learning_rate * lr_mult)
+    if not config.scale_schedules_with_batch:
+        return dataclasses.replace(config, **lrs)
+
+    def div(x):
+        return max(int(x) // b, 1)
+
+    ctrl = config.adaptive_controller_config
+    ctrl = dataclasses.replace(
+        ctrl, num_iterations_warm_up=div(ctrl.num_iterations_warm_up),
+        num_iterations_densify=div(ctrl.num_iterations_densify),
+        num_iterations_reset_alpha=div(ctrl.num_iterations_reset_alpha),
+        iteration_start_remove_floater=div(
+            ctrl.iteration_start_remove_floater))
+    scaled = dataclasses.replace(
+        config, adaptive_controller_config=ctrl,
+        increase_color_max_sh_band_interval=div(
+            config.increase_color_max_sh_band_interval),
+        half_downsample_factor_interval=div(
+            config.half_downsample_factor_interval),
+        position_learning_rate_decay_interval=div(
+            config.position_learning_rate_decay_interval), **lrs)
+    logging.getLogger(__name__).info(
+        "batch_size=%d: iteration schedules divided by the batch size "
+        "(densify %d, warm-up %d, alpha reset %d, SH unlock %d, downsample "
+        "%d, position-LR decay %d)", b, ctrl.num_iterations_densify,
+        ctrl.num_iterations_warm_up, ctrl.num_iterations_reset_alpha,
+        scaled.increase_color_max_sh_band_interval,
+        scaled.half_downsample_factor_interval,
+        scaled.position_learning_rate_decay_interval)
+    return scaled
+
+
+def normalize_quaternions(feats: torch.Tensor) -> torch.Tensor:
+    """The features with each stored quaternion normalized; the norm is
+    floored so that an all-zero padding slot stays 0."""
+    qnorm = feats[:, 0:4] / torch.clamp(torch.linalg.norm(
+        feats[:, 0:4], dim=1, keepdim=True), min=1e-12)
+    return torch.cat([qnorm, feats[:, 4:]], dim=1)
+
+
+class ViewGradients(NamedTuple):
+    """One view's loss and raw gradients (`view_gradients`)."""
+    loss: torch.Tensor           # () detached
+    l1: torch.Tensor
+    ssim_loss: torch.Tensor
+    image: torch.Tensor          # the clipped render (H, W, 3)
+    grad_pc: torch.Tensor        # (N, 3)
+    grad_feats: torch.Tensor     # (N, 56), scaled and band-masked
+    stats: BackwardStats
+    result: RasterizeResult      # no autograd graph
+
+
+def view_gradients(scene, feats, image_gt, q, t, camera_info, raster_config,
+                   loss_fn, grad_scale, band_mask,
+                   mark=_no_mark) -> ViewGradients:
+    """Render one view with `feats` (quaternions normalized), take the loss
+    on the image clipped to [0, 1] and its gradients with respect to the
+    image and, for the regularizer, the features, then the rasterizer's VJP.
+    The rasterizer-path feature gradients are scaled per group and masked
+    to the active SH bands; the regularizer's are added unscaled."""
+    result, vjp_fn = rasterize_with_vjp(
+        scene.point_cloud, feats, scene.point_invalid_mask,
+        scene.point_object_id, q, t, camera_info, raster_config, mark=mark)
+    image = result.image.detach().requires_grad_(True)
+    feats_leaf = feats.detach().requires_grad_(True)
+    with torch.enable_grad():
+        img = torch.clamp(image, 0.0, 1.0)
+        loss, l1, ld_ssim = loss_fn(
+            img, image_gt, point_invalid_mask=scene.point_invalid_mask,
+            pointcloud_features=feats_leaf)
+        g_image, g_feats_direct = torch.autograd.grad(
+            loss, (image, feats_leaf), allow_unused=True)
+    if g_feats_direct is None:
+        g_feats_direct = torch.zeros_like(feats)
+    mark("loss")
+
+    grad_pc, grad_feats_raster, stats = vjp_fn(g_image)
+    grad_feats = grad_feats_raster * grad_scale * band_mask + g_feats_direct
+    return ViewGradients(loss.detach(), l1.detach(), ld_ssim.detach(),
+                         img.detach(), grad_pc, grad_feats, stats, result)
+
+
+def contain_gradients(grad_pc, grad_feats):
+    """Zero the non-finite gradient rows (a culled degenerate splat's VJP
+    can still give 0 * inf = NaN), so that one point cannot poison its Adam
+    moments. Returns (grad_pc, grad_feats, number of points zeroed)."""
+    feat_row_ok = torch.isfinite(grad_feats).all(dim=1, keepdim=True)
+    pc_row_ok = torch.isfinite(grad_pc).all(dim=1, keepdim=True)
+    nonfinite_grad_rows = (~feat_row_ok[:, 0] | ~pc_row_ok[:, 0]).sum(
+        dtype=torch.int32)
+    return (torch.where(pc_row_ok, grad_pc, torch.zeros_like(grad_pc)),
+            torch.where(feat_row_ok, grad_feats,
+                        torch.zeros_like(grad_feats)),
+            nonfinite_grad_rows)
+
+
+def keep_if_ok(loss_ok, new, old):
+    """`new` where the loss was finite, else `old` (NamedTuples of tensors):
+    a non-finite loss poisons every gradient."""
+    return type(old)(*(torch.where(loss_ok, a, b) for a, b in zip(new, old)))
+
+
 def _downsample_item(item: DatasetItem, factor: int) -> DatasetItem:
     """Image and camera downsampled on the host (bilinear, through uint8)."""
     if factor <= 1:
@@ -173,14 +302,18 @@ def _cache_image_to_float(x: torch.Tensor) -> torch.Tensor:
 
 class MetricsLogger:
     """JSONL + console (`key=value;` lines) + TensorBoard, when the
-    `tensorboard` package is installed."""
+    `tensorboard` package is installed. With `write` False (a rank other
+    than 0) it writes nothing."""
 
     def __init__(self, log_dir: str, print_to_console: bool,
-                 enable_tensorboard: bool = True):
+                 enable_tensorboard: bool = True, write: bool = True):
+        self.jsonl = None
+        self.print_to_console = print_to_console and write
+        self.tb = None
+        if not write:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self.jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        self.print_to_console = print_to_console
-        self.tb = None
         if enable_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -190,6 +323,8 @@ class MetricsLogger:
                 self.tb = SummaryWriter(log_dir=log_dir)
 
     def scalars(self, iteration: int, values: dict, console_keys=()):
+        if self.jsonl is None:
+            return
         rec = {"iteration": iteration}
         rec.update({k: float(v) for k, v in values.items()})
         self.jsonl.write(json.dumps(rec) + "\n")
@@ -211,33 +346,46 @@ class MetricsLogger:
             self.tb.add_histogram(tag, values, iteration)
 
     def close(self):
-        self.jsonl.close()
+        if self.jsonl is not None:
+            self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
 
 
 class StepOutput(NamedTuple):
     """What one training step leaves for the loop."""
-    metrics: dict                # name -> 0-d tensor on the device
-    stats: BackwardStats         # for densify
-    result: RasterizeResult      # no autograd graph
-    image: torch.Tensor          # the clipped render (H, W, 3)
+    metrics: dict          # name -> 0-d tensor on the device
+    densify_inputs: tuple  # (BackwardStats, in_frustum, point_depth,
+    #                        point_uv) of the step's (last) view
+    maps: tuple            # (clipped render (H, W, 3), depth (H, W),
+    #                        valid point count (H, W)) of that view
 
 
 class GaussianPointCloudTrainer:
     def __init__(self, config: TrainConfig, device="cuda"):
+        """`device` is this rank's device. Under an initialized
+        torch.distributed process group the batch is split over its ranks
+        (`parallel/sharding.py`), and the state is broadcast from rank 0
+        after init and after a resume."""
+        # the caller's config object gets only its output_model_dir filled
         if config.output_model_dir is None:
             config.output_model_dir = config.summary_writer_log_dir
-        if config.batch_size != 1:
-            raise NotImplementedError(
-                "batch_size > 1 (the multi-view data-parallel step) is not "
-                "ported to taichi_3d_gaussian_splatting_torch")
+        config = _scale_schedules_for_batch(config)
         self.config = config
         self.device = torch.device(device)
+        self.mesh = make_mesh(config.mesh_devices)
+        if config.batch_size < 1 or config.batch_size % self.mesh.size:
+            raise ValueError(f"batch_size {config.batch_size} is not a "
+                             f"multiple of the {self.mesh.size} ranks")
+        self.is_main = self.mesh.rank == 0
+        b = config.batch_size
+        self.betas = ((0.9 ** b, 0.999 ** b) if config.scale_betas_with_batch
+                      else (0.9, 0.999))
         os.makedirs(config.summary_writer_log_dir, exist_ok=True)
         os.makedirs(config.output_model_dir, exist_ok=True)
         self.logger = MetricsLogger(config.summary_writer_log_dir,
-                                    config.print_metrics_to_console)
+                                    config.print_metrics_to_console,
+                                    write=self.is_main)
         self.train_dataset = ImagePoseDataset(config.train_dataset_json_path)
         self.val_dataset = ImagePoseDataset(config.val_dataset_json_path)
         self.scene = GaussianPointCloudScene.from_parquet(
@@ -260,11 +408,16 @@ class GaussianPointCloudTrainer:
             _grad_group_scale(config.rasterisation_config),
             device=self.device)
         self._band_masks = {}
+        self._batch_steps = {}
         self._val_cache = None
-        self._order = []  # view indices left in the current epoch
+        # the epoch's view permutation and the position in it
+        self._perm = None
+        self._pos = 0
         self.start_iteration = 0
         if config.resume_from_checkpoint:
             self.load(config.resume_from_checkpoint)
+        replicate_scene(self.mesh, self.scene, self.opt_features,
+                        self.opt_positions, self.ctrl_state)
 
     # ------------------------------------------------------------------
     # state <-> checkpoint
@@ -313,6 +466,18 @@ class GaussianPointCloudTrainer:
                 sh_band, device=self.device)
         return self._band_masks[sh_band]
 
+    def _update_features(self, param, grad, state):
+        return adam_update(param, grad, state,
+                           self.config.feature_learning_rate, *self.betas)
+
+    def _update_positions(self, param, grad, state):
+        cfg = self.config
+        lr = exponential_decay_lr(
+            cfg.position_learning_rate,
+            cfg.position_learning_rate_decay_rate,
+            cfg.position_learning_rate_decay_interval, state.count)
+        return adam_update(param, grad, state, lr, *self.betas)
+
     def step(self, image_gt: torch.Tensor, q: torch.Tensor, t: torch.Tensor,
              sh_band: int, camera_info: CameraInfo,
              mark=_no_mark) -> StepOutput:
@@ -320,86 +485,62 @@ class GaussianPointCloudTrainer:
         device); updates the scene, both Adam states and the controller
         statistics. `mark(stage)` is called after each stage (those of
         `rasterize_with_vjp`, "loss" and "adam"), a timing hook."""
-        cfg = self.config
         scene = self.scene
-        feats = scene.point_cloud_features
-        # re-normalize the stored quaternion; the norm is floored so an
-        # all-zero padding slot stays 0
-        qnorm = feats[:, 0:4] / torch.clamp(torch.linalg.norm(
-            feats[:, 0:4], dim=1, keepdim=True), min=1e-12)
-        feats = torch.cat([qnorm, feats[:, 4:]], dim=1)
+        feats = normalize_quaternions(scene.point_cloud_features)
+        view = view_gradients(
+            scene, feats, image_gt, q, t, camera_info,
+            self.config.rasterisation_config, self.loss_fn,
+            self._grad_scale, self._band_mask(sh_band), mark)
+        grad_pc, grad_feats, nonfinite_grad_rows = contain_gradients(
+            view.grad_pc, view.grad_feats)
+        loss_ok = torch.isfinite(view.loss)
 
-        result, vjp_fn = rasterize_with_vjp(
-            scene.point_cloud, feats, scene.point_invalid_mask,
-            scene.point_object_id, q, t, camera_info,
-            cfg.rasterisation_config, mark=mark)
-
-        # loss on the clipped image; its gradient with respect to the image
-        # and, for the regularizer, directly to the features
-        image = result.image.detach().requires_grad_(True)
-        feats_leaf = feats.detach().requires_grad_(True)
-        with torch.enable_grad():
-            img = torch.clamp(image, 0.0, 1.0)
-            loss, l1, ld_ssim = self.loss_fn(
-                img, image_gt, point_invalid_mask=scene.point_invalid_mask,
-                pointcloud_features=feats_leaf)
-            g_image, g_feats_direct = torch.autograd.grad(
-                loss, (image, feats_leaf), allow_unused=True)
-        if g_feats_direct is None:
-            g_feats_direct = torch.zeros_like(feats)
-        mark("loss")
-
-        grad_pc, grad_feats_raster, stats = vjp_fn(g_image)
-        grad_feats = (grad_feats_raster * self._grad_scale
-                      * self._band_mask(sh_band) + g_feats_direct)
-
-        # a culled degenerate splat's VJP can still give 0 * inf = NaN
-        # rows: zero them so one point cannot poison its Adam moments
-        feat_row_ok = torch.isfinite(grad_feats).all(dim=1, keepdim=True)
-        pc_row_ok = torch.isfinite(grad_pc).all(dim=1, keepdim=True)
-        nonfinite_grad_rows = (~feat_row_ok[:, 0] | ~pc_row_ok[:, 0]).sum(
-            dtype=torch.int32)
-        grad_feats = torch.where(feat_row_ok, grad_feats,
-                                 torch.zeros_like(grad_feats))
-        grad_pc = torch.where(pc_row_ok, grad_pc, torch.zeros_like(grad_pc))
-        # a non-finite loss poisons every gradient: keep the old state
-        loss = loss.detach()
-        loss_ok = torch.isfinite(loss)
-
-        new_feats, opt_f = adam_update(feats, grad_feats, self.opt_features,
-                                       cfg.feature_learning_rate)
-        pos_lr = exponential_decay_lr(
-            cfg.position_learning_rate,
-            cfg.position_learning_rate_decay_rate,
-            cfg.position_learning_rate_decay_interval,
-            self.opt_positions.count)
-        new_pc, opt_p = adam_update(scene.point_cloud, grad_pc,
-                                    self.opt_positions, pos_lr)
-
-        def keep_if_ok(new, old):
-            return type(old)(*(torch.where(loss_ok, a, b)
-                               for a, b in zip(new, old)))
-
-        self.opt_features = keep_if_ok(opt_f, self.opt_features)
-        self.opt_positions = keep_if_ok(opt_p, self.opt_positions)
+        new_feats, opt_f = self._update_features(feats, grad_feats,
+                                                 self.opt_features)
+        new_pc, opt_p = self._update_positions(scene.point_cloud, grad_pc,
+                                               self.opt_positions)
+        self.opt_features = keep_if_ok(loss_ok, opt_f, self.opt_features)
+        self.opt_positions = keep_if_ok(loss_ok, opt_p, self.opt_positions)
         self.scene = scene._replace(
             point_cloud=torch.where(loss_ok, new_pc, scene.point_cloud),
             point_cloud_features=torch.where(loss_ok, new_feats, feats))
+        aux = view.result.aux
         self.ctrl_state = keep_if_ok(
-            update_stats(self.ctrl_state, stats, grad_pc,
-                         result.aux.in_frustum), self.ctrl_state)
+            loss_ok, update_stats(self.ctrl_state, view.stats, grad_pc,
+                                  aux.in_frustum), self.ctrl_state)
         mark("adam")
 
-        img = img.detach()
         metrics = {
-            "loss": loss, "l1": l1.detach(), "ssim_loss": ld_ssim.detach(),
-            "psnr": psnr_fn(img, image_gt), "ssim": 1.0 - ld_ssim.detach(),
-            "total_keys": result.aux.total_keys,
-            "nonfinite_points": result.aux.nonfinite_points,
+            "loss": view.loss, "l1": view.l1, "ssim_loss": view.ssim_loss,
+            "psnr": psnr_fn(view.image, image_gt),
+            "ssim": 1.0 - view.ssim_loss,
+            "total_keys": aux.total_keys,
+            "nonfinite_points": aux.nonfinite_points,
             "nonfinite_grad_rows": nonfinite_grad_rows,
             "skipped_nonfinite_step": (~loss_ok).to(torch.int32),
         }
-        return StepOutput(metrics, stats, result, img)
+        return StepOutput(
+            metrics, (view.stats, aux.in_frustum, aux.point_depth,
+                      aux.point_uv),
+            (view.image, view.result.depth,
+             view.result.pixel_valid_point_count))
+
+    def batch_step(self, images: torch.Tensor, qs: torch.Tensor,
+                   ts: torch.Tensor, intrinsics, sh_band: int,
+                   camera_info: CameraInfo, mark=_no_mark) -> StepOutput:
+        """One optimizer step on B views (images (B, H, W, 3), qs (B, 1, 4),
+        ts (B, 1, 3), intrinsics (B, 3, 3), the same on every rank), this
+        rank taking its block of them (`parallel/sharding.py`)."""
+        key = (camera_info.camera_height, camera_info.camera_width)
+        if key not in self._batch_steps:
+            self._batch_steps[key] = make_data_parallel_train_step(
+                self.mesh, camera_info, self.config.rasterisation_config,
+                self.loss_fn, self._update_features, self._update_positions)
+        (self.scene, self.opt_features, self.opt_positions, self.ctrl_state,
+         metrics, densify_inputs, maps) = self._batch_steps[key](
+            self.scene, self.opt_features, self.opt_positions,
+            self.ctrl_state, images, qs, ts, intrinsics, sh_band, mark=mark)
+        return StepOutput(metrics, densify_inputs, maps)
 
     # ------------------------------------------------------------------
     # main loop
@@ -430,22 +571,39 @@ class GaussianPointCloudTrainer:
                 np.stack([np.asarray(it.camera_info.camera_intrinsics,
                                      np.float32) for it in items]))
 
-    def _next_view(self, cache, stream, factor):
-        """(image_gt, q, t, camera) of the next training view."""
+    def _next_views(self, cache, stream, factor, count):
+        """(images (B, H, W, 3), qs (B, 1, 4), ts (B, 1, 3) on the device,
+        intrinsics (B, 3, 3) numpy, camera) of the next `count` training
+        views. From the device cache they are the next entries of the
+        epoch's permutation, wrapping within it when `count` runs past its
+        end; the next step after that draws a new permutation."""
         if cache is not None:
             cam, images, qs, ts, intrs = cache
-            if not self._order:
-                self._order = torch.randperm(
-                    images.shape[0], generator=self.data_generator).tolist()
-            idx = self._order.pop(0)
-            cam = dataclasses.replace(cam, camera_intrinsics=intrs[idx])
-            return _cache_image_to_float(images[idx]), qs[idx], ts[idx], cam
-        item = _downsample_item(next(stream), factor)
-        dev = self.device
-        return (torch.as_tensor(item.image, device=dev),
-                torch.as_tensor(item.q_pointcloud_camera, device=dev),
-                torch.as_tensor(item.t_pointcloud_camera, device=dev),
-                item.camera_info)
+            num_views = images.shape[0]
+            if self._pos >= num_views:
+                self._perm = torch.randperm(num_views,
+                                            generator=self.data_generator)
+                self._pos = 0
+            idxs = self._perm[(self._pos + torch.arange(count)) % num_views]
+            self._pos += count
+            dev_idxs = idxs.to(images.device)
+            return (_cache_image_to_float(images[dev_idxs]), qs[dev_idxs],
+                    ts[dev_idxs], intrs[idxs.numpy()], cam)
+        items = [_downsample_item(next(stream), factor) for _ in range(count)]
+        cam = items[-1].camera_info
+        if any((it.camera_info.camera_height, it.camera_info.camera_width)
+               != (cam.camera_height, cam.camera_width) for it in items):
+            raise ValueError("batch_size > 1 needs training images of one "
+                             "shape")
+
+        def stack(arrays):
+            return torch.as_tensor(np.stack(arrays), device=self.device)
+
+        return (stack([it.image for it in items]),
+                stack([it.q_pointcloud_camera for it in items]),
+                stack([it.t_pointcloud_camera for it in items]),
+                np.stack([np.asarray(it.camera_info.camera_intrinsics,
+                                     np.float32) for it in items]), cam)
 
     def train(self):
         config = self.config
@@ -477,7 +635,7 @@ class GaussianPointCloudTrainer:
                     cache = self._device_cache(self.train_dataset,
                                                downsample_factor)
                     cache_factor = downsample_factor
-                    self._order = []
+                    self._pos = len(self.train_dataset)  # a new permutation
                 if cache is None and stream is None:
                     loader = PrefetchLoader(self.train_dataset, shuffle=True,
                                             num_workers=4, seed=config.seed)
@@ -489,9 +647,15 @@ class GaussianPointCloudTrainer:
                 # before this step's optimizer update
                 pos_before = (self.scene.point_cloud.clone() if densify_due
                               else None)
-                image_gt, q, t, cam = self._next_view(cache, stream,
-                                                      downsample_factor)
-                out = self.step(image_gt, q, t, sh_band, cam)
+                images, qs, ts, intrs, cam = self._next_views(
+                    cache, stream, downsample_factor, config.batch_size)
+                if config.batch_size == 1:
+                    out = self.step(images[0], qs[0], ts[0], sh_band,
+                                    dataclasses.replace(
+                                        cam, camera_intrinsics=intrs[0]))
+                else:
+                    out = self.batch_step(images, qs, ts, intrs, sh_band,
+                                          cam)
 
                 if densify_due:
                     self._densify(iteration, out, pos_before, cam)
@@ -499,6 +663,8 @@ class GaussianPointCloudTrainer:
                         and iteration
                         % ctrl_cfg.num_iterations_reset_alpha == 0):
                     self.scene = reset_alpha(self.scene, ctrl_cfg)
+                if not self.is_main:
+                    continue
 
                 now = time.perf_counter()
                 pending.append((iteration, out.metrics, now - last_time))
@@ -517,27 +683,28 @@ class GaussianPointCloudTrainer:
                         and (iteration % config.log_image_interval == 0
                              or is_problematic)):
                     self._log_panel(iteration, is_problematic, out,
-                                    image_gt)
+                                    images[-1])
                 if validation_due:
                     self.validation(iteration)
-            self.validation(config.num_iterations,
-                            completed=config.num_iterations)
+            if self.is_main:
+                self.validation(config.num_iterations,
+                                completed=config.num_iterations)
         finally:
             if loader is not None:
                 loader.close()
 
     def _densify(self, iteration, out, pos_before, cam):
         ctrl_cfg = self.config.adaptive_controller_config
-        aux = out.result.aux
-        self._log_histograms(iteration, out.stats)
+        stats, in_frustum, point_depth, point_uv = out.densify_inputs
+        self._log_histograms(iteration, stats)
         self.scene, self.ctrl_state, counts = densify_step(
-            self.scene, self.ctrl_state, out.stats, aux.in_frustum,
-            aux.point_depth, pos_before, iteration, self.generator, ctrl_cfg)
+            self.scene, self.ctrl_state, stats, in_frustum, point_depth,
+            pos_before, iteration, self.generator, ctrl_cfg)
         if (self.logger.tb is not None
                 and iteration % ctrl_cfg.plot_densify_interval == 0):
             from ..utils.visualization import densify_scatter_figure
             img = densify_scatter_figure(
-                aux.point_uv.cpu().numpy(), counts.floater_mask.cpu().numpy(),
+                point_uv.cpu().numpy(), counts.floater_mask.cpu().numpy(),
                 counts.over_reconstructed_mask.cpu().numpy(),
                 counts.under_reconstructed_mask.cpu().numpy(),
                 cam.camera_height, cam.camera_width)
@@ -620,15 +787,15 @@ class GaussianPointCloudTrainer:
         return any_problematic
 
     def _log_panel(self, iteration, is_problematic, out, image_gt):
-        """[pred | gt | depth | points per pixel | error] panel."""
+        """[pred | gt | depth | points per pixel | error] panel of the
+        step's (last) view."""
         from ..utils.visualization import (easy_cmap, make_image_grid,
                                            normalized_gray)
-        pred = out.image.cpu().numpy()
+        pred, depth, count = (x.cpu().numpy() for x in out.maps)
         gt = image_gt.cpu().numpy()
-        panel = make_image_grid([
-            pred, gt, easy_cmap(out.result.depth.cpu().numpy()),
-            normalized_gray(out.result.pixel_valid_point_count.cpu().numpy()),
-            np.abs(pred - gt)], nrow=2)
+        panel = make_image_grid([pred, gt, easy_cmap(depth),
+                                 normalized_gray(count), np.abs(pred - gt)],
+                                nrow=2)
         self.logger.image(iteration, "train/image_problematic"
                           if is_problematic else "train/image", panel)
 

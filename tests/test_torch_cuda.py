@@ -1,6 +1,6 @@
 """The CUDA blend kernels (forward and backward) against their plain
-PyTorch versions on the card, and one training step on the card against
-the same step on the CPU.
+PyTorch versions on the card; one training step, two batch steps and the
+viewer's frames on the card against the same on the CPU.
 
 Marked `cuda`: skips without a card. Run on a machine with an H100 as
 
@@ -26,7 +26,8 @@ from torch_chunk_fixtures import (NUM_TILES, TILES_PER_ROW,
 from torch_port_fixtures import (AB_CASES, ATOL, RTOL, assert_counts_close,
                                  camera_intrinsics, identity_pose,
                                  random_scene)
-from torch_train_fixtures import one_step_state, write_dataset
+from torch_train_fixtures import (batch_step_state, one_step_state,
+                                  write_dataset)
 
 pytestmark = pytest.mark.cuda
 
@@ -197,3 +198,45 @@ def test_training_step_on_card_matches_cpu(cuda, tmp_path):
     for k in cpu:
         np.testing.assert_allclose(gpu[k], cpu[k], rtol=RTOL, atol=ATOL,
                                    err_msg=k)
+
+
+def test_batch_steps_on_card_match_cpu(cuda, tmp_path):
+    """Two batch steps of two views (the port's batch path, no process
+    group) on the card and on the CPU: the losses to 1e-4 relative, every
+    state array at rtol 2e-3 / atol 1e-4; K2 and K3 launch once per view."""
+    write_dataset(str(tmp_path))
+    before = dict(BC.launch_counts)
+    gpu = batch_step_state(cuda, str(tmp_path))
+    torch.cuda.synchronize()
+    for name in ("blend_forward", "blend_backward"):
+        assert BC.launch_counts[name] - before[name] == 4, name
+    cpu = batch_step_state(torch.device("cpu"), str(tmp_path))
+    np.testing.assert_allclose(gpu["losses"], cpu["losses"], rtol=1e-4)
+    assert gpu["state"].keys() == cpu["state"].keys()
+    for k in cpu["state"]:
+        np.testing.assert_allclose(gpu["state"][k], cpu["state"][k],
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+def test_viewer_on_card_matches_cpu(cuda, tmp_path):
+    """The viewer's frames on the card against the CPU after a camera key,
+    an object key and a hide; each frame launches K1 once."""
+    from taichi_3d_gaussian_splatting_torch.visualizer import VisualizerState
+    paths = []
+    for seed in (0, 1):
+        pc, feats = random_scene(30, seed=seed)
+        path = str(tmp_path / f"scene_{seed}.parquet")
+        GaussianPointCloudScene.from_numpy(
+            pc, feats, np.zeros(30), np.zeros(30)).to_parquet(path)
+        paths.append(path)
+    states = [VisualizerState(paths, 32, 32, 25.0, device=d)
+              for d in (cuda, "cpu")]
+    for key in ("", "w", "1", "d", "h"):
+        for state in states:
+            if key:
+                state.handle_key(key)
+        before = BC.launch_counts["blend_forward_rgb"]
+        gpu = states[0].frame().cpu().numpy()
+        assert BC.launch_counts["blend_forward_rgb"] == before + 1
+        np.testing.assert_allclose(gpu, states[1].frame().numpy(),
+                                   rtol=RTOL, atol=ATOL, err_msg=key)

@@ -38,6 +38,12 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.training.checkpoint",
     "taichi_3d_gaussian_splatting_torch.training.trainer",
     "taichi_3d_gaussian_splatting_torch.train",
+    "taichi_3d_gaussian_splatting_torch.ops.geometry",
+    "taichi_3d_gaussian_splatting_torch.parallel",
+    "taichi_3d_gaussian_splatting_torch.parallel.sharding",
+    "taichi_3d_gaussian_splatting_torch.parallel.dryrun",
+    "taichi_3d_gaussian_splatting_torch.visualizer",
+    "taichi_3d_gaussian_splatting_torch.parquet_to_ply",
 ]
 
 

@@ -122,3 +122,52 @@ def one_step_state(root, device):
               if not k.endswith("generator")}
     trainer.logger.close()
     return float(out.metrics["loss"]), arrays
+
+
+# the views of each batch step of batch_step_state
+BATCHES = ([0, 1], [2, 0])
+SH_BAND = 1
+
+
+def batch_views(trainer, idxs):
+    """(images (B, H, W, 3), qs, ts, intrinsics (B, 3, 3), camera) of the
+    training views `idxs`, on the trainer's device."""
+    items = [trainer.train_dataset[i] for i in idxs]
+
+    def stack(name):
+        return torch.as_tensor(np.stack([getattr(it, name) for it in items]),
+                               device=trainer.device)
+
+    return (stack("image"), stack("q_pointcloud_camera"),
+            stack("t_pointcloud_camera"),
+            np.stack([it.camera_info.camera_intrinsics for it in items]),
+            items[-1].camera_info)
+
+
+def batch_step_state(device, root):
+    """The port's trainer with batch_size 2 on `device` (under the process
+    group, if one is initialized) from the dataset under `root`, anisotropic
+    scales as in one_step_state, two batch steps on the views of BATCHES;
+    returns {"losses": [...], "state": the training state as numpy
+    arrays}."""
+    from taichi_3d_gaussian_splatting_torch import config as tconfig
+    from taichi_3d_gaussian_splatting_torch.training import trainer as TT
+    torch.set_num_threads(1)
+    trainer = TT.GaussianPointCloudTrainer(
+        tconfig.from_dict(TT.TrainConfig, config_dict(root, batch_size=2)),
+        device=device)
+    feats = trainer.scene.point_cloud_features.cpu().numpy()
+    rng = np.random.default_rng(5)
+    feats[:, 4:7] += rng.uniform(-0.5, 0.5, (feats.shape[0], 3))
+    trainer.scene = trainer.scene._replace(
+        point_cloud_features=torch.as_tensor(feats, device=trainer.device))
+    losses = []
+    for idxs in BATCHES:
+        images, qs, ts, intrs, cam = batch_views(trainer, idxs)
+        out = trainer.batch_step(images, qs, ts, intrs, SH_BAND, cam)
+        losses.append(float(out.metrics["loss"]))
+    trainer.logger.close()
+    return {"losses": losses,
+            "state": {k: v.cpu().numpy()
+                      for k, v in trainer.state_arrays().items()
+                      if not k.endswith("generator")}}
