@@ -23,8 +23,11 @@ Phases (any failure exits non-zero; nothing is caught):
      scene of bench.py at 976x544 (fx 581.7, near 0.4), frame time over 50
      frames after 10 warm-up frames, a per-stage breakdown, and one full
      render (depth and count) of the same view; the kernels' launch counts
-     are read over this phase only. Then the frame time of the 1.03M
-     heavy-tailed scene of benchmark/synthetic_checkpoint.py.
+     are read over this phase only. Then the frame times of the 1.03M
+     and 2.08M heavy-tailed scenes of benchmark/synthetic_checkpoint.py
+     (kernel path only; no plain version at that size). Each scene's
+     peak device memory and its slab columns against the backward
+     kernel's 2**24 limit are printed;
   3b. the backward blend kernel against its plain version on the card, on
      the three 32x32 fixtures, the long-segment fixture and the binned 20k,
      430k and 1.03M scenes (a seeded image cotangent; the forward kernel's
@@ -48,7 +51,20 @@ Phases (any failure exits non-zero; nothing is caught):
      the CPU (no process group);
   7. the viewer: `VisualizerState` on the 430k scene at 976x544, split
      into two objects; frames after a camera key, an object key and a
-     hide, K1's launches over them, the PNGs decoded, the frame time.
+     hide, K1's launches over them, the PNGs decoded, the frame time;
+  8. the trace on the card: (a) the trainer on phase 5's dataset for 12
+     iterations with `enable_profiler` over iterations 5-9 (no densify,
+     validation after the window); the trace file it wrote under
+     `<logs>/profile/` is read back (utils/profiling.py): device busy
+     share, kernel launches per step, the top-10 kernels, the forward
+     blend's (work list, transmittance, blend) and K3's time per step.
+     It fails without CUDA kernel events, without blend_forward_kernel
+     and blend_backward_kernel, or when K2's or K3's time per launch in
+     the trace is more than 25% from their CUDA-event times on the same
+     inputs (each training view of the final state); (b) 10 frames of
+     the 430k `rasterize(rgb_only=True)` under torch.profiler, the same
+     summary per frame, K1 held at 25% against its phase-3 time (the same
+     inputs).
 
 The second-to-last line is a JSON object describing each kernel at the
 main path's shapes (430k scene; launches from phases 4 and 5): its time,
@@ -85,6 +101,11 @@ BATCH_ITERATIONS = 12
 BATCH_DENSIFY_EVERY = 24
 TIMED_BATCH_STEPS = 5
 VIEWER_FRAMES = 20
+# phase 8: the traced training run and render
+TRACE_ITERATIONS = 12
+TRACE_START, TRACE_STEPS = 5, 5
+TRACE_FRAMES = 10
+TRACE_TOLERANCE = 0.25
 
 
 def fail(msg):
@@ -106,6 +127,22 @@ def bench_scene(n, seed=0):
     feats[:, 24] = rng.normal(size=n)
     feats[:, 40] = rng.normal(size=n)
     return pc, feats
+
+
+def time_ms(fn, reps, warmup=2):
+    """Mean device time of fn() over `reps` calls, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def write_training_set(root, pc, feats, cam):
@@ -489,6 +526,126 @@ def viewer_phase(root, pc, feats, card, fail):
           f"{launches['blend_forward_rgb']} ({card})", flush=True)
 
 
+def check_trace(label, summary, event_ms, unit, fail):
+    """Print a trace summary; fail without kernel events, without a blend
+    family of `event_ms` ({"forward" / "backward": CUDA-event ms per
+    launch on the same inputs}), or when a family's time per launch in the
+    trace is more than TRACE_TOLERANCE from its CUDA-event time."""
+    from taichi_3d_gaussian_splatting_torch.utils.profiling import (
+        format_summary)
+    print(f"trace [{label}]: " + format_summary(summary, unit), flush=True)
+    if summary["kernels"] == 0:
+        fail(f"{label}: the trace holds no CUDA kernel events")
+    for fam, want in event_ms.items():
+        entry = summary["blend"][fam]
+        if entry["launches_per_range"] == 0:
+            fail(f"{label}: blend_{fam}_kernel is missing from the trace")
+        got = entry["ms_per_range"] / entry["launches_per_range"]
+        print(f"  blend {fam}: {got:.4f} ms per launch in the trace, "
+              f"{want:.4f} ms by CUDA events ({got / want - 1:+.1%})",
+              flush=True)
+        if abs(got / want - 1.0) > TRACE_TOLERANCE:
+            fail(f"{label}: blend {fam} takes {got:.4f} ms per launch in "
+                 f"the trace against {want:.4f} ms by CUDA events")
+
+
+def trace_train_phase(paths, root, card, fail):
+    """Phase 8a: a traced training run; its trace file read back and held
+    against K2's and K3's CUDA-event times on each training view of the
+    run's final state."""
+    import torch
+    import torch_chunk_fixtures as cf
+    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+    from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
+        _project_and_bin)
+    from taichi_3d_gaussian_splatting_torch.training.trainer import (
+        normalize_quaternions)
+    from taichi_3d_gaussian_splatting_torch.utils.profiling import (
+        load_events, summarize_trace, trace_files)
+
+    logs = os.path.join(root, "trace_logs")
+    # warm-up as long as the run: no densify
+    trainer = make_trainer(paths, logs, TRACE_ITERATIONS,
+                           num_iterations=TRACE_ITERATIONS,
+                           enable_profiler=True,
+                           profiler_start_iteration=TRACE_START,
+                           profiler_num_steps=TRACE_STEPS)
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer.logger.close()
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        losses = [r["train/loss"] for r in map(json.loads, f)
+                  if "train/loss" in r]
+    if len(losses) != TRACE_ITERATIONS or not np.isfinite(losses).all():
+        fail(f"traced training losses missing or not finite: {losses}")
+    files = trace_files(logs)
+    if len(files) != 1:
+        fail(f"the traced run wrote {len(files)} trace files: {files}")
+    t0 = time.perf_counter()
+    summary = summarize_trace(load_events(files[0]))
+    print(f"traced training: {TRACE_ITERATIONS} iterations in {train_s:.2f} "
+          f"s, trace of iterations {TRACE_START}-"
+          f"{TRACE_START + TRACE_STEPS - 1} in {os.path.basename(files[0])} "
+          f"({os.path.getsize(files[0]) / 2**20:.1f} MiB, read in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if summary["ranges"] != TRACE_STEPS:
+        fail(f"the trace has {summary['ranges']} iteration ranges, not "
+             f"{TRACE_STEPS}")
+
+    cam, images, qs, ts, intrs = trainer._device_cache(trainer.train_dataset,
+                                                       1)
+    scene = trainer.scene
+    feats = normalize_quaternions(scene.point_cloud_features)
+    k2, k3 = [], []
+    for v in range(images.shape[0]):
+        view_cam = dataclasses.replace(cam, camera_intrinsics=intrs[v])
+        with torch.no_grad():
+            binning = _project_and_bin(
+                scene.point_cloud, feats, scene.point_invalid_mask,
+                scene.point_object_id, qs[v], ts[v], view_cam,
+                trainer.config.rasterisation_config, None)[3]
+        kw = dict(num_tiles=view_cam.num_tiles,
+                  tiles_per_row=view_cam.tiles_per_row)
+        args = (binning.point_data, binning.tile_starts, binning.tile_ends)
+        pixel_in = cf.seeded_pixel_in(
+            BC.blend_forward(*args, rgb_only=False, **kw), view_cam, v)
+        k2.append(time_ms(lambda: BC.blend_forward(*args, rgb_only=False,
+                                                   **kw), 20))
+        k3.append(time_ms(lambda: BC.blend_backward(*args, pixel_in, **kw),
+                          20))
+    check_trace(f"training step, {W}x{H}, 430k synthetic, {card}", summary,
+                {"forward": float(np.mean(k2)),
+                 "backward": float(np.mean(k3))}, "step", fail)
+
+
+def trace_render_phase(root, render, scene, cfg_rgb, k1_ms, card, fail):
+    """Phase 8b: TRACE_FRAMES frames of the rgb_only render under
+    torch.profiler, each in a range `frame i`; K1 held against its phase-3
+    CUDA-event time `k1_ms` on the same inputs."""
+    import torch
+    from taichi_3d_gaussian_splatting_torch.utils.profiling import (
+        load_events, summarize_trace)
+    for _ in range(3):
+        render(scene, cfg_rgb)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for i in range(TRACE_FRAMES):
+            with torch.profiler.record_function(f"frame {i}"):
+                render(scene, cfg_rgb)
+        torch.cuda.synchronize()
+    path = os.path.join(root, "render_trace.json")
+    prof.export_chrome_trace(path)
+    summary = summarize_trace(load_events(path), "frame ")
+    if summary["ranges"] != TRACE_FRAMES:
+        fail(f"the render trace has {summary['ranges']} frame ranges")
+    check_trace(f"430k frame, rasterize(rgb_only=True) at {W}x{H}, {card}",
+                summary, {"forward": k1_ms}, "frame", fail)
+
+
 def step_cuda_vs_cpu(root, fail):
     """One 32x32 training step from one state on the card and on the CPU:
     every state array at rtol 2e-3 / atol 1e-4."""
@@ -571,20 +728,6 @@ def main():
         n = pc.shape[0]
         return GaussianPointCloudScene.from_numpy(
             pc, feats, np.zeros(n), np.zeros(n), device)
-
-    def time_ms(fn, reps, warmup=2):
-        """Mean device time of fn() over `reps` calls, by CUDA events."""
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
 
     # ---- 3. kernel vs plain version on the card ------------------------
     variants = [("blend_forward_rgb", "packed8", True),
@@ -908,6 +1051,7 @@ def main():
         return dict(zip(names, (totals / frames).tolist())), image, binning
 
     def run_scene(label, pc, feats, count_launches):
+        torch.cuda.reset_peak_memory_stats()
         scene = scene_on(pc, feats, cuda)
         if count_launches:
             BC.reset_launch_counts()
@@ -946,6 +1090,14 @@ def main():
         print(f"  stages ms: " + ", ".join(f"{k} {v:.4f}"
                                            for k, v in stages.items()),
               flush=True)
+        # the slab has one column per key
+        columns = int(binning.total_keys)
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"  peak device memory {peak_mib:.1f} MiB; {columns} slab "
+              f"columns, {100.0 * columns / BC.MAX_BACKWARD_COLUMNS:.2f}% "
+              f"of the backward kernel's 2**24 limit", flush=True)
+        if columns >= BC.MAX_BACKWARD_COLUMNS // 2:
+            fail(f"{label}: {columns} slab columns, near K3's 2**24 limit")
         return launches
 
     launches = run_scene("430k synthetic", *scenes["430k synthetic"], True)
@@ -954,6 +1106,8 @@ def main():
     if min(launches["blend_forward_rgb"], launches["blend_forward"]) < 1:
         fail(f"a kernel of the path was never launched: {launches}")
     run_scene("1.03M heavy-tailed", *scenes["1.03M heavy-tailed"], False)
+    run_scene("2.08M heavy-tailed", *make_heavy_tailed_checkpoint(
+        2080000, np.random.default_rng(0)), False)
 
     # ---- 5. training path -----------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -969,6 +1123,11 @@ def main():
         batch_step_cuda_vs_cpu(small_batch, fail)
         # ---- 7. the viewer ---------------------------------------------
         viewer_phase(tmp, *scenes["430k synthetic"], card, fail)
+        # ---- 8. the trace on the card ------------------------------------
+        trace_train_phase(paths, tmp, card, fail)
+        trace_render_phase(tmp, render, scene_on(*scenes["430k synthetic"],
+                                                 cuda), cfg_rgb,
+                           kernel_ms["blend_forward_rgb"], card, fail)
         del scenes
     launches["blend_backward"] = train_launches["blend_backward"]
 

@@ -1,4 +1,5 @@
-"""Camera metadata: intrinsics, image size and the 16x16 tile grid.
+"""Camera metadata: intrinsics, image size and the 16x16 tile grid, and a
+registry of cameras and posed views.
 
 Copied from ``taichi_3d_gaussian_splatting_tpu/camera.py`` (that package's
 ``__init__`` imports jax, so it cannot be imported from here). The
@@ -80,3 +81,34 @@ class CameraInfo:
             camera_width=camera_width,
             camera_id=self.camera_id,
         )
+
+
+@dataclasses.dataclass
+class CameraView:
+    """A posed view: the camera-to-world transform of one image."""
+    camera_view_id: int
+    T_pointcloud_camera: Any  # (4, 4) camera-to-world
+    camera_id: int
+    image_id: int
+    timestamp: int | None = None  # microseconds
+
+
+class CameraDatabase:
+    """Registry of cameras and views."""
+
+    def __init__(self):
+        self.camera_info_dict = {}
+        self.camera_view_dict = {}
+
+    def add_camera_info(self, camera_info: CameraInfo):
+        self.camera_info_dict[camera_info.camera_id] = camera_info
+
+    def get_camera_info(self, camera_id: int) -> CameraInfo:
+        return self.camera_info_dict[camera_id]
+
+    def add_camera_view(self, camera_view: CameraView):
+        self.camera_view_dict[camera_view.camera_view_id] = camera_view
+
+    def get_camera_view_and_info(self, camera_view_id: int):
+        view = self.camera_view_dict[camera_view_id]
+        return view, self.camera_info_dict[view.camera_id]

@@ -115,3 +115,8 @@ def to_yaml_file(obj: Any, path: str):
     import yaml
     with open(path, "w") as f:
         yaml.safe_dump(to_dict(obj), f, sort_keys=False)
+
+
+def to_yaml(obj: Any) -> str:
+    import yaml
+    return yaml.safe_dump(to_dict(obj), sort_keys=False)

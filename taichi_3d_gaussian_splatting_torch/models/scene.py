@@ -105,7 +105,7 @@ class GaussianPointCloudScene(NamedTuple):
 
     @staticmethod
     def from_numpy(point_cloud, point_cloud_features, point_invalid_mask,
-                   point_object_id, device="cpu") -> "GaussianPointCloudScene":
+                   point_object_id, device="cuda") -> "GaussianPointCloudScene":
         """The scene from four array-likes (e.g. `np.asarray` of each field
         of a JAX-package scene), copied to `device`."""
         def put(x, dtype):
@@ -124,7 +124,7 @@ class GaussianPointCloudScene(NamedTuple):
                     point_cloud_rgb: Optional[np.ndarray] = None,
                     point_object_id: Optional[np.ndarray] = None,
                     rng: Optional[np.random.Generator] = None,
-                    device="cpu") -> "GaussianPointCloudScene":
+                    device="cuda") -> "GaussianPointCloudScene":
         """Build a scene, padding to fixed capacity and initializing features
         when none are given (`rng` draws the initial quaternions; default
         `np.random.default_rng(0)`)."""
@@ -173,7 +173,7 @@ class GaussianPointCloudScene(NamedTuple):
     @staticmethod
     def from_parquet(path: str, config: Optional[SceneConfig] = None,
                      rng: Optional[np.random.Generator] = None,
-                     device="cpu") -> "GaussianPointCloudScene":
+                     device="cuda") -> "GaussianPointCloudScene":
         """Load the 59-column parquet schema, or initialize features from
         x,y,z (and r,g,b when present)."""
         import pandas as pd
@@ -247,7 +247,7 @@ class GaussianPointCloudScene(NamedTuple):
 
     @staticmethod
     def from_ply(path: str, config: Optional[SceneConfig] = None,
-                 device="cpu") -> "GaussianPointCloudScene":
+                 device="cuda") -> "GaussianPointCloudScene":
         """Load an official-implementation PLY checkpoint (rotation wxyz ->
         xyzw, f_dc/f_rest interleaved per channel)."""
         config = config or SceneConfig()

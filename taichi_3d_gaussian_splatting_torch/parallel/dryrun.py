@@ -42,7 +42,7 @@ def _rank_entry(rank, fn, n, device, store, out_dir, args):
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, n: int, device: str = "cpu", args=()) -> list:
+def spawn_ranks(fn, n: int, device: str = "cuda", args=()) -> list:
     """Run `fn(device, *args)` in `n` new processes joined in one process
     group (gloo on the CPU, NCCL with one card per rank on `cuda`); return
     their results in rank order. `fn` must be importable by name, and its
@@ -129,7 +129,7 @@ def toy_batch_step(device):
             "positions": new_scene.point_cloud.cpu()}
 
 
-def dryrun_multichip(n: int, device: str = "cpu") -> dict:
+def dryrun_multichip(n: int, device: str = "cuda") -> dict:
     """One batch step of the toy scene in `n` processes (one view each):
     the loss is finite, the parameters moved, and every rank holds the
     same parameters bit for bit. Returns the loss and the largest

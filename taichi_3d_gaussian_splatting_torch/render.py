@@ -63,7 +63,8 @@ def merge_scenes(parquet_paths, device) -> tuple:
     the index of its file; returns (scene, number of objects)."""
     pcs, feats, objs = [], [], []
     for i, path in enumerate(parquet_paths):
-        scene = GaussianPointCloudScene.from_parquet(path).spatially_sorted()
+        scene = GaussianPointCloudScene.from_parquet(
+            path, device="cpu").spatially_sorted()
         pc, f = scene._valid_arrays()
         pcs.append(pc)
         feats.append(f)

@@ -50,7 +50,7 @@ def exponential_decay_lr(base: float, gamma: float, interval: int,
     return base * torch.pow(gamma, torch.ceil(count / interval))
 
 
-def adam_state_from_optax(opt_state, device="cpu") -> AdamState:
+def adam_state_from_optax(opt_state, device="cuda") -> AdamState:
     """The port's state from an optax adam state (the first element of the
     chain's state carries `mu`, `nu` and `count`; array-likes)."""
     s = opt_state[0]

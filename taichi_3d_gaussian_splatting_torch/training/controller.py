@@ -61,7 +61,7 @@ class ControllerState(NamedTuple):
     accumulated_position_grad_norm: torch.Tensor   # (N,) f32
 
     @staticmethod
-    def zeros(n: int, device="cpu") -> "ControllerState":
+    def zeros(n: int, device="cuda") -> "ControllerState":
         def z(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
         return ControllerState(
@@ -70,7 +70,7 @@ class ControllerState(NamedTuple):
             z((n, 3), torch.float32), z((n,), torch.float32))
 
     @staticmethod
-    def from_numpy(arrays, device="cpu") -> "ControllerState":
+    def from_numpy(arrays, device="cuda") -> "ControllerState":
         """From six array-likes in field order (e.g. the fields of the JAX
         package's ControllerState)."""
         dtypes = (np.int32, np.int32, np.float32, np.float32, np.float32,

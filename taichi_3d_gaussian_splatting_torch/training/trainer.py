@@ -36,9 +36,15 @@ shape and fits `device_cache_max_bytes`; otherwise a thread pool streams
 it. Per-step metrics stay on the device and reach the host once per
 `log_loss_interval`.
 
+With `enable_profiler`, iterations [`profiler_start_iteration`,
+`profiler_start_iteration + profiler_num_steps`) run under torch.profiler
+(`utils/profiling.py`), each in a range `iteration {i}`, and each rank
+writes its trace to `<summary_writer_log_dir>/profile/`, also when the run
+ends inside the window. A tqdm progress bar shows on rank 0 when tqdm is
+installed.
+
 The same YAML files load as for the JAX package. Its capacity knobs are
-accepted and ignored (the port's binning has no budgets), and so are
-`enable_profiler` and its two settings.
+accepted and ignored (the port's binning has no budgets).
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from ..ops.rasterizer import (BackwardStats, RasterizeResult,
 from ..ops.sh import feature_sh_band_mask
 from ..parallel.sharding import (make_data_parallel_train_step, make_mesh,
                                  replicate_scene)
+from ..utils.profiling import TraceWindow
 from .adam import AdamState, adam_init, adam_update, exponential_decay_lr
 from .checkpoint import load_checkpoint, save_checkpoint
 from .controller import (AdaptiveControllerConfig, ControllerState,
@@ -100,7 +107,8 @@ class TrainConfig:
     seed: int = 0
     save_full_checkpoint: bool = True
     resume_from_checkpoint: str = ""
-    # accepted and ignored (the JAX package's profiler hook)
+    # a torch.profiler trace of iterations [start, start + num_steps)
+    # under <summary_writer_log_dir>/profile/
     enable_profiler: bool = False
     profiler_start_iteration: int = 100
     profiler_num_steps: int = 5
@@ -622,9 +630,24 @@ class GaussianPointCloudTrainer:
             if (it % config.half_downsample_factor_interval == 0
                     and downsample_factor > 1):
                 downsample_factor //= 2
+        window = (TraceWindow(config.summary_writer_log_dir,
+                              config.profiler_start_iteration,
+                              config.profiler_num_steps, self.device,
+                              self.mesh.rank)
+                  if config.enable_profiler else None)
+        progress = range(start, config.num_iterations)
+        if self.is_main:
+            try:
+                from tqdm import tqdm
+                progress = tqdm(progress, initial=start,
+                                total=config.num_iterations)
+            except ImportError:
+                pass
         last_time = time.perf_counter()
         try:
-            for iteration in range(start, config.num_iterations):
+            for iteration in progress:
+                if window is not None:
+                    window.begin(iteration)
                 if (iteration % config.half_downsample_factor_interval == 0
                         and iteration > 0 and downsample_factor > 1):
                     downsample_factor //= 2
@@ -686,10 +709,16 @@ class GaussianPointCloudTrainer:
                                     images[-1])
                 if validation_due:
                     self.validation(iteration)
+            if window is not None:     # the last validation is not traced
+                window.close()
             if self.is_main:
                 self.validation(config.num_iterations,
                                 completed=config.num_iterations)
         finally:
+            if window is not None:
+                window.close()
+            if hasattr(progress, "close"):
+                progress.close()
             if loader is not None:
                 loader.close()
 

@@ -44,7 +44,7 @@ def _inputs(seed, alpha, cfg):
     numpy."""
     pc, feats = random_scene(60, seed=seed, alpha=alpha)
     scene = GaussianPointCloudScene.from_numpy(pc, feats, np.zeros(60),
-                                               np.zeros(60))
+                                               np.zeros(60), "cpu")
     q, t = (torch.as_tensor(x) for x in identity_pose())
     cam = CameraInfo(camera_intrinsics(), 32, 32)
     with torch.no_grad():

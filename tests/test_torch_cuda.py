@@ -240,3 +240,41 @@ def test_viewer_on_card_matches_cpu(cuda, tmp_path):
         assert BC.launch_counts["blend_forward_rgb"] == before + 1
         np.testing.assert_allclose(gpu, states[1].frame().numpy(),
                                    rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+def test_loaders_default_to_the_card(cuda, tmp_path):
+    """A scene loaded with no device lands on cuda:0, as do the controller
+    state and the dry run's default."""
+    from taichi_3d_gaussian_splatting_torch.training.controller import (
+        ControllerState)
+    pc, feats = random_scene(30)
+    path = str(tmp_path / "scene.parquet")
+    GaussianPointCloudScene.from_numpy(pc, feats, np.zeros(30), np.zeros(30),
+                                       "cpu").to_parquet(path)
+    scene = GaussianPointCloudScene.from_parquet(path)
+    assert scene.point_cloud.device == torch.device("cuda", 0)
+    assert ControllerState.zeros(4).accumulated_num_pixels.is_cuda
+
+
+def test_trainer_trace_shows_the_kernels(cuda, tmp_path):
+    """A profiled 32x32 run on the card: the trace file under
+    <logs>/profile/ holds the two ranges and the forward and backward
+    blend kernels once per step."""
+    from taichi_3d_gaussian_splatting_torch import config as tconfig
+    from taichi_3d_gaussian_splatting_torch.training import trainer as TT
+    from taichi_3d_gaussian_splatting_torch.utils import profiling as P
+    from torch_train_fixtures import config_dict
+    write_dataset(str(tmp_path))
+    d = config_dict(str(tmp_path), num_iterations=5, val_interval=10 ** 6,
+                    enable_profiler=True, profiler_start_iteration=2,
+                    profiler_num_steps=2)
+    trainer = TT.GaussianPointCloudTrainer(
+        tconfig.from_dict(TT.TrainConfig, d), device=cuda)
+    trainer.train()
+    trainer.logger.close()
+    files = P.trace_files(d["summary_writer_log_dir"])
+    assert len(files) == 1
+    summary = P.summarize_trace(P.load_events(files[0]))
+    assert summary["ranges"] == 2 and summary["kernels"] > 0
+    for fam in ("forward", "backward"):
+        assert summary["blend"][fam]["launches_per_range"] == 1.0, fam

@@ -44,6 +44,7 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.parallel.dryrun",
     "taichi_3d_gaussian_splatting_torch.visualizer",
     "taichi_3d_gaussian_splatting_torch.parquet_to_ply",
+    "taichi_3d_gaussian_splatting_torch.utils.profiling",
 ]
 
 

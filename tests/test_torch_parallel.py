@@ -10,7 +10,7 @@ the trainer's batch_size > 1):
     the JAX trainer;
 (d) batch_size 2 end to end (densify, validation, resume) and on the
     streaming path;
-(e) `dryrun_multichip(2)`;
+(e) `dryrun_multichip(2, "cpu")`;
 (f) a batch that does not split over the ranks, and a mesh size that is
     not the group's, raise.
 
@@ -67,10 +67,11 @@ def parity_run(tmp_path_factory):
     rng = np.random.default_rng(5)
     feats[:, 4:7] += rng.uniform(-0.5, 0.5, (feats.shape[0], 3))
     jt.scene = jt.scene._replace(point_cloud_features=jnp.asarray(feats))
-    tt.scene = TScene.from_numpy(*(np.asarray(x) for x in jt.scene))
-    tt.opt_features = adam_state_from_optax(jt.opt_state_features)
-    tt.opt_positions = adam_state_from_optax(jt.opt_state_positions)
-    tt.ctrl_state = TC.ControllerState.from_numpy(jt.ctrl_state)
+    tt.scene = TScene.from_numpy(*(np.asarray(x) for x in jt.scene),
+                                 device="cpu")
+    tt.opt_features = adam_state_from_optax(jt.opt_state_features, "cpu")
+    tt.opt_positions = adam_state_from_optax(jt.opt_state_positions, "cpu")
+    tt.ctrl_state = TC.ControllerState.from_numpy(jt.ctrl_state, "cpu")
 
     cam = jt.train_dataset[0].camera_info
     jstep = JP.make_data_parallel_train_step(
@@ -262,7 +263,7 @@ def test_batch_train_end_to_end_and_resume(tmp_path):
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
     assert sum("densify/num_fillable" in r for r in records) == 5
     for name in ("scene_5.parquet", "scene_10.parquet", "best_scene.parquet"):
-        scene = TScene.from_parquet(str(logdir / name))
+        scene = TScene.from_parquet(str(logdir / name), device="cpu")
         assert scene.num_valid_points() > 0
         assert np.isfinite(scene.point_cloud_features.numpy()).all()
     saved = trainer.state_arrays()
@@ -331,7 +332,7 @@ def test_batch_streaming_and_mixed_shapes(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_dryrun_multichip_two_ranks():
-    out = dryrun_multichip(2)
+    out = dryrun_multichip(2, "cpu")
     assert np.isfinite(out["loss"]) and out["max_param_delta"] > 0
 
 

@@ -37,7 +37,8 @@ def _render_both(seed, alpha, cfg, mode):
     n = pc.shape[0]
     jscene = JScene(jnp.asarray(pc), jnp.asarray(feats),
                     jnp.zeros(n, jnp.int8), jnp.zeros(n, jnp.int32))
-    tscene = TScene.from_numpy(*(np.asarray(x) for x in jscene))
+    tscene = TScene.from_numpy(*(np.asarray(x) for x in jscene),
+                               device="cpu")
     q, t = identity_pose()
     K = camera_intrinsics()
     jres = JR.rasterize(*jscene, jnp.asarray(q), jnp.asarray(t),
@@ -94,7 +95,7 @@ def test_rasterize_gradients_flow():
     non-zero gradients to positions and features; the rgb_only render is
     inference only and its image carries no gradient."""
     pc, feats = random_scene(8)
-    scene = TScene.from_numpy(pc, feats, np.zeros(8), np.zeros(8))
+    scene = TScene.from_numpy(pc, feats, np.zeros(8), np.zeros(8), "cpu")
     q, t = (torch.as_tensor(x) for x in identity_pose())
     pc_g = scene.point_cloud.clone().requires_grad_(True)
     feats_g = scene.point_cloud_features.clone().requires_grad_(True)

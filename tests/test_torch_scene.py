@@ -40,7 +40,8 @@ def test_files_cross_read(tmp_path, fmt):
     jscene = _jax_scene(invalid_every=7)
     # JAX writes -> port reads
     getattr(jscene, f"to_{fmt}")(str(tmp_path / f"j.{fmt}"))
-    tscene = getattr(TScene, f"from_{fmt}")(str(tmp_path / f"j.{fmt}"))
+    tscene = getattr(TScene, f"from_{fmt}")(str(tmp_path / f"j.{fmt}"),
+                                            device="cpu")
     _assert_same(getattr(JScene, f"from_{fmt}")(str(tmp_path / f"j.{fmt}")),
                  tscene)
     assert tscene.num_valid_points() == jscene.num_valid_points()
@@ -55,7 +56,8 @@ def test_files_cross_read(tmp_path, fmt):
 
 def test_spatially_sorted_same_permutation():
     jscene = _jax_scene(n=200, invalid_every=9, seed=3)
-    tscene = TScene.from_numpy(*(np.asarray(x) for x in jscene))
+    tscene = TScene.from_numpy(*(np.asarray(x) for x in jscene),
+                               device="cpu")
     _assert_same(jscene.spatially_sorted(), tscene.spatially_sorted())
 
 
@@ -81,7 +83,7 @@ def test_from_arrays_initialization_matches_jax(with_rgb):
                            point_cloud_rgb=rgb, seed=11)
     t = TScene.from_arrays(pc, tscene_mod.SceneConfig(**kw),
                            point_cloud_rgb=rgb,
-                           rng=np.random.default_rng(11))
+                           rng=np.random.default_rng(11), device="cpu")
     _assert_same(j, t)
     assert t.capacity == 60 and t.num_valid_points() == 40
 
@@ -94,7 +96,7 @@ def test_parquet_without_features_and_sphere(tmp_path):
     df.to_parquet(tmp_path / "xyz.parquet")
     cfg = dict(add_sphere=True, num_points_sphere=16)
     t = TScene.from_parquet(str(tmp_path / "xyz.parquet"),
-                            tscene_mod.SceneConfig(**cfg))
+                            tscene_mod.SceneConfig(**cfg), device="cpu")
     assert t.capacity == 46 and t.num_valid_points() == 46
     feats = t.point_cloud_features.numpy()
     np.testing.assert_allclose(np.linalg.norm(feats[:, 0:4], axis=1), 1.0,
@@ -106,5 +108,6 @@ def test_parquet_without_features_and_sphere(tmp_path):
 
 
 def test_empty_scene_is_one_invalid_slot():
-    t = TScene.from_arrays(np.zeros((0, 3)), tscene_mod.SceneConfig())
+    t = TScene.from_arrays(np.zeros((0, 3)), tscene_mod.SceneConfig(),
+                           device="cpu")
     assert t.capacity == 1 and t.num_valid_points() == 0

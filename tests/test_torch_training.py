@@ -199,10 +199,10 @@ def test_controller_matches_jax(case):
     jcfg = JC.AdaptiveControllerConfig(**cfg)
     tcfg = TC.AdaptiveControllerConfig(**cfg)
     jscene = JScene(*(jnp.asarray(x) for x in arrays))
-    tscene = TScene.from_numpy(*arrays)
+    tscene = TScene.from_numpy(*arrays, device="cpu")
     jstats, tstats = _stats_pair(npix, mag)
     jstate = JC.ControllerState(*(jnp.asarray(x) for x in acc))
-    tstate = TC.ControllerState.from_numpy(acc)
+    tstate = TC.ControllerState.from_numpy(acc, "cpu")
 
     jstate = JC.update_stats(jstate, jstats, jnp.asarray(grad_pc),
                              jnp.asarray(in_frustum))
@@ -308,10 +308,11 @@ def test_trainer_step_matches_jax(tmp_path):
     feats = np.array(jt.scene.point_cloud_features)
     feats[:, 4:7] += rng.uniform(-0.5, 0.5, (feats.shape[0], 3))
     jt.scene = jt.scene._replace(point_cloud_features=jnp.asarray(feats))
-    tt.scene = TScene.from_numpy(*(np.asarray(x) for x in jt.scene))
-    tt.opt_features = adam_state_from_optax(jt.opt_state_features)
-    tt.opt_positions = adam_state_from_optax(jt.opt_state_positions)
-    tt.ctrl_state = TC.ControllerState.from_numpy(jt.ctrl_state)
+    tt.scene = TScene.from_numpy(*(np.asarray(x) for x in jt.scene),
+                                 device="cpu")
+    tt.opt_features = adam_state_from_optax(jt.opt_state_features, "cpu")
+    tt.opt_positions = adam_state_from_optax(jt.opt_state_positions, "cpu")
+    tt.ctrl_state = TC.ControllerState.from_numpy(jt.ctrl_state, "cpu")
 
     jstate = (jt.scene, jt.opt_state_features, jt.opt_state_positions,
               jt.ctrl_state)
@@ -389,7 +390,7 @@ def test_train_end_to_end_and_resume(tmp_path):
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
     assert any("densify/num_fillable" in r for r in records)
     for name in ("scene_10.parquet", "scene_20.parquet", "best_scene.parquet"):
-        scene = TScene.from_parquet(str(logdir / name))
+        scene = TScene.from_parquet(str(logdir / name), device="cpu")
         assert scene.num_valid_points() > 0
         assert np.isfinite(scene.point_cloud_features.numpy()).all()
 

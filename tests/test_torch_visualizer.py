@@ -44,8 +44,8 @@ def _write_scene(tmp_path, seed, n=20):
     feats[:, 8] = rng.normal(size=n) + 2.0
     feats[:, 24] = rng.normal(size=n)
     path = str(tmp_path / f"scene_{seed}.parquet")
-    TScene.from_arrays(pc, SceneConfig(),
-                       point_cloud_features=feats).to_parquet(path)
+    TScene.from_arrays(pc, SceneConfig(), point_cloud_features=feats,
+                       device="cpu").to_parquet(path)
     return path
 
 
@@ -183,7 +183,7 @@ def test_parquet_to_ply_matches_jax(scenes, tmp_path):
     got, want = JScene.from_ply(ply_t), JScene.from_ply(ply_j)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    back = TScene.from_ply(ply_t)
+    back = TScene.from_ply(ply_t, device="cpu")
     assert back.num_valid_points() == 20
     np.testing.assert_array_equal(back.point_cloud.numpy()[:20],
                                   np.asarray(want.point_cloud)[:20])

@@ -52,7 +52,7 @@ def _jax_vjp(arrays, cfg, g):
 def _torch_vjp(arrays, cfg, g):
     q, t = (torch.as_tensor(x) for x in identity_pose())
     res, vjp_fn = TR.rasterize_with_vjp(
-        *TScene.from_numpy(*arrays), q, t,
+        *TScene.from_numpy(*arrays, device="cpu"), q, t,
         TCamera(camera_intrinsics(), 32, 32), TR.RasterizerConfig(**cfg))
     gp, gf, stats = vjp_fn(torch.as_tensor(g))
     return res, gp.numpy(), gf.numpy(), stats
@@ -113,7 +113,7 @@ def test_projection_gradients_match_jax_vjp(seed, alpha, label, cfg):
     _, jfn = jax.vjp(jcols, jnp.asarray(arrays[0]), jnp.asarray(arrays[1]))
     jgp, jgf = (np.asarray(x) for x in jfn(tuple(jnp.asarray(c)
                                                   for c in cots)))
-    scene = TScene.from_numpy(*arrays)
+    scene = TScene.from_numpy(*arrays, device="cpu")
     pc = scene.point_cloud.requires_grad_(True)
     feats = scene.point_cloud_features.requires_grad_(True)
     _, cols, _, _ = TR._project_and_bin(
@@ -138,7 +138,7 @@ def test_rasterize_backward_equals_vjp_fn(seed, alpha, label, cfg):
     arrays = _scene(seed, alpha)
     g = _g_image(seed)
     _, vgp, vgf, _ = _torch_vjp(arrays, cfg, g)
-    scene = TScene.from_numpy(*arrays)
+    scene = TScene.from_numpy(*arrays, device="cpu")
     pc = scene.point_cloud.requires_grad_(True)
     feats = scene.point_cloud_features.requires_grad_(True)
     q, t = (torch.as_tensor(x) for x in identity_pose())

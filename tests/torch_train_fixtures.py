@@ -41,7 +41,7 @@ def write_dataset(root, n_views=3, n_points=30, seed=0, size=W):
     intr = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],
                     np.float32)
     scene = TScene.from_numpy(pc, feats, np.zeros(n_points),
-                              np.zeros(n_points))
+                              np.zeros(n_points), "cpu")
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
     records = []
     for v in range(n_views):
