@@ -7,7 +7,10 @@ heavy-tailed scene, on the inputs chip_smoke.py gives them
     python3 blend_kernel_times.py [--parent DIR]
 
 `ms` is the mean of 20 back-to-back calls by CUDA events (what a caller
-waits, the gaps between kernels included). With `--parent DIR`, DIR holds
+waits, the gaps between kernels included). K2 and K3 are called as
+training calls them: K2 through `blend_forward_with_last`, K3 with its
+int32 `last` (a package without `blend_forward_with_last`, such as an
+older parent, through `blend_forward` and the float `last` row). With `--parent DIR`, DIR holds
 another checkout's `taichi_3d_gaussian_splatting_torch` (unpacked with
 `git archive` into a git-ignored directory), imported beside this one
 under another name: each kernel of both packages is timed on the same
@@ -86,18 +89,32 @@ def deviation(got, ref):
             int((diff > ATOL + RTOL * ref.double().abs()).sum())]
 
 
-def check_backward(packages, args, kw):
+def kernel_call(pkg, name, args, kw, last):
+    """A call of kernel `name` of package `pkg` as training makes it."""
+    with_last = hasattr(pkg, "blend_forward_with_last")
+    if name == "blend_backward" and with_last:
+        return lambda: pkg.blend_backward(*args, **kw, last=last)
+    if name == "blend_backward":
+        return lambda: pkg.blend_backward(*args, **kw)
+    if name == "blend_forward" and with_last:
+        tiles = {k: v for k, v in kw.items() if k != "rgb_only"}
+        return lambda: pkg.blend_forward_with_last(*args, **tiles)
+    return lambda: pkg.blend_forward(*args, **kw)
+
+
+def check_backward(packages, args, kw, last):
     """K3's float rows from each package's kernel and from the float32
     plain version against the float64 plain version."""
     import torch
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
-    ref = BC.blend_backward_torch(*args, **kw, dtype=torch.float64)
-    plain = BC.blend_backward_torch(*args, **kw)
+    ref = BC.blend_backward_torch(*args, **kw, dtype=torch.float64,
+                                  last=last)
+    plain = BC.blend_backward_torch(*args, **kw, last=last)
     rows = {"du": BC.GROW_DU, "dv": BC.GROW_DV, "da": BC.GROW_DA,
             "db": BC.GROW_DB, "dc": BC.GROW_DC, "dlogw": BC.GROW_DLOGW,
             "dr": BC.GROW_DR, "dg": BC.GROW_DG, "db_col": BC.GROW_DB_COL,
             "mag_uv": BC.GROW_MAG_UV}
-    outs = {label: pkg.blend_backward(*args, **kw)
+    outs = {label: kernel_call(pkg, "blend_backward", args, kw, last)()
             for label, pkg in packages.items()}
     outs["plain_f32"] = plain
     for label, (grad, mag) in outs.items():
@@ -143,7 +160,7 @@ def main():
     for label, make in scenes.items():
         binning, slabs = binned_inputs(*make(), cam, CFG_MAIN, "cuda")
         ranges = (binning.tile_starts, binning.tile_ends)
-        fwd = BC.blend_forward(slabs["wide16"], *ranges, rgb_only=False, **kw)
+        fwd, last = BC.blend_forward_with_last(slabs["wide16"], *ranges, **kw)
         pixel_in = seeded_pixel_in(fwd, cam, BACKWARD_SEED)
         inputs = {
             "blend_forward_rgb": ((slabs["packed8"],) + ranges,
@@ -155,9 +172,7 @@ def main():
         }
         seg = binning.tile_ends - binning.tile_starts
         for name, (a, k) in inputs.items():
-            fn = "blend_backward" if name == "blend_backward" \
-                else "blend_forward"
-            calls = {p: (lambda pkg=pkg: getattr(pkg, fn)(*a, **k))
+            calls = {p: kernel_call(pkg, name, a, k, last)
                      for p, pkg in packages.items()}
             order = (["parent"] if args.parent else []) + ["this", "this"] \
                 + (["parent"] if args.parent else [])
@@ -165,7 +180,7 @@ def main():
             for p in order:
                 times[p].append(time_ms(calls[p]))
             w = work(name, a[0], *ranges, cam.num_tiles, cam.tiles_per_row,
-                     last=fwd[:, BC.OUT_LAST_EFF])
+                     last=last)
             ms = float(np.mean(times["this"]))
             parent_ms = float(np.mean(times["parent"])) if args.parent \
                 else None
@@ -176,8 +191,8 @@ def main():
                 share_of_bound=w["bound_ms"] / ms, card=card, **w)),
                 flush=True)
         if label == "1.03M":
-            check_backward(packages, *inputs["blend_backward"])
-        del binning, slabs, fwd, pixel_in, inputs
+            check_backward(packages, *inputs["blend_backward"], last)
+        del binning, slabs, fwd, last, pixel_in, inputs
 
 
 if __name__ == "__main__":

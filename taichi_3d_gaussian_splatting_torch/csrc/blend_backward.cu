@@ -3,9 +3,11 @@
 //
 // Replaces taichi_3d_gaussian_splatting_tpu/ops/blend_pallas.py::_backward_kernel
 // (public blend_backward). Inputs: the wide16 slab the forward blended, the
-// tile ranges (as the forward's chunk work list), and per pixel
-// [g_r, g_g, g_b, C_r, C_g, C_b, last, 0] (the image cotangent, the
-// forward's colour and its OUT_LAST_EFF row). Outputs: per key (slab
+// tile ranges (as the forward's chunk work list), per pixel
+// [g_r, g_g, g_b, C_r, C_g, C_b, ., .] (the image cotangent and the
+// forward's colour; rows 6-7 are not read), and per pixel the forward's
+// `last` as int32 (blend_forward.cu's last_out: exact for any int32 slab
+// column, where a float is exact only up to 2^24). Outputs: per key (slab
 // column) the 16-row gradient slab (blend_cuda.py GROW_* rows), and per
 // pixel [sum |gx|, sum |gy|, 0 ...].
 //
@@ -59,8 +61,8 @@
 //      sums of |gx|, |gy| of the chunks, added in chunk order.
 //    Each slab column lies in exactly one chunk of one tile, so a block
 //    writes only its own columns of the gradient slab: no atomics. Nothing
-//    new passes from the forward but `last`: the chunks' (T_in, P_in) are
-//    recomputed here, so blend_backward keeps its signature.
+//    passes from the forward but `last`: the chunks' (T_in, P_in) are
+//    recomputed here.
 //  - A pixel's keys end at its `last`, so a block walks its range only up
 //    to the largest `last` of its pixels; later columns keep the zeros the
 //    wrapper allocated.
@@ -82,7 +84,6 @@ constexpr int kKeyBatch = 64;
 constexpr int kSums = 11;    // per-key sums, in GROW_* row order below
 constexpr int kSlots = 16;   // the sums padded for the butterfly
 constexpr int kPixelRows = 8;
-constexpr int kRowLast = 6;  // pixel_in row of the forward's `last`
 using Rows = SlabRows<false, false>;
 
 // grad slab row of per-key sum k: du dv da db dc dlogw -> 0..5,
@@ -126,8 +127,8 @@ struct PixelIn {
 };
 
 __device__ __forceinline__ int load_pixel(PixelIn& in, const float* pixel_in,
-                                          int tile, int p, int tiles_per_row,
-                                          int* s_last) {
+                                          const int* last, int tile, int p,
+                                          int tiles_per_row, int* s_last) {
   if (p == 0) *s_last = 0;
   __syncthreads();
   const float* pin =
@@ -139,9 +140,8 @@ __device__ __forceinline__ int load_pixel(PixelIn& in, const float* pixel_in,
   in.g_b = pin[2 * kPixels];
   in.S = in.g_r * pin[3 * kPixels] + in.g_g * pin[4 * kPixels] +
          in.g_b * pin[5 * kPixels];
-  // the forward's last contributing column + 1, exact below 2^24 (the
-  // wrapper refuses larger slabs)
-  in.last = static_cast<int>(pin[kRowLast * kPixels]);
+  // the forward's last contributing column + 1
+  in.last = last[static_cast<size_t>(tile) * kPixels + p];
   atomicMax(s_last, in.last);
   __syncthreads();
   return *s_last;
@@ -162,7 +162,8 @@ __global__ void __launch_bounds__(kPixels)
 backward_chunk_kernel(const float* __restrict__ data,
                       const int* __restrict__ items, int stride,
                       const float* __restrict__ pixel_in,
-                      float* __restrict__ tq, int mk, int tiles_per_row) {
+                      const int* __restrict__ last, float* __restrict__ tq,
+                      int mk, int tiles_per_row) {
   __shared__ __align__(16) uint32_t raw[2][Rows::kRows][kKeyBatch];
   __shared__ StagedKey keys[kKeyBatch];
   __shared__ int s_last;
@@ -172,7 +173,7 @@ backward_chunk_kernel(const float* __restrict__ data,
   const int p = threadIdx.x;
   PixelIn in;
   const int block_last =
-      load_pixel(in, pixel_in, w.tile, p, tiles_per_row, &s_last);
+      load_pixel(in, pixel_in, last, w.tile, p, tiles_per_row, &s_last);
   float T = 1.0f, Q = 0.0f;
   Stager<Rows, kKeyBatch> st{raw, keys,
                              reinterpret_cast<const uint32_t*>(data),
@@ -210,6 +211,7 @@ __global__ void __launch_bounds__(kPixels)
 blend_backward_kernel(const float* __restrict__ data,
                       const int* __restrict__ items, int stride,
                       const float* __restrict__ pixel_in,
+                      const int* __restrict__ last,
                       const float* __restrict__ tq, float* __restrict__ grad,
                       float* __restrict__ mag_part, int* __restrict__ counters,
                       float* __restrict__ mag_out, int num_split_items,
@@ -227,7 +229,7 @@ blend_backward_kernel(const float* __restrict__ data,
   const int warp = p >> 5;
   PixelIn in;
   const int block_last =
-      load_pixel(in, pixel_in, w.tile, p, tiles_per_row, &s_last);
+      load_pixel(in, pixel_in, last, w.tile, p, tiles_per_row, &s_last);
 
   // (T_in, P_in) of chunk j from the earlier chunks' (T_chunk, Q_chunk);
   // prefix = sum_ch g * sum_{j <= i} w_j c_j
@@ -335,22 +337,24 @@ blend_backward_kernel(const float* __restrict__ data,
 
 // data: (16, mk) wide16 slab; tile_starts/ends, num_tiles, chunk, items,
 // num_items, num_split_items, counters: as for t3dgs_blend_forward (the
-// same work list); pixel_in: (num_tiles, 8, 256) f32 with the forward's
-// `last` in row 6; tq and mag_part: (max(num_split_items, 1), 2, 256) f32
-// scratch; grad: (16, mk) f32, ZEROED by the caller; mag: (num_tiles, 8,
-// 256) f32, every element written. Launches the work list, pass A (if
+// same work list); pixel_in: (num_tiles, 8, 256) f32, rows 0-5 read; last:
+// (num_tiles, 256) int32, the forward's last_out; tq and mag_part:
+// (max(num_split_items, 1), 2, 256) f32 scratch; grad: (16, mk) f32,
+// ZEROED by the caller; mag: (num_tiles, 8, 256) f32, every element
+// written. Launches the work list, pass A (if
 // num_split_items > 0) and pass B on `stream` and returns the first
 // cudaGetLastError() that is not 0 (0 on success).
 extern "C" int t3dgs_blend_backward(const void* data, const void* tile_starts,
                                     const void* tile_ends, int num_tiles,
                                     int chunk, void* items, int num_items,
                                     int num_split_items, void* counters,
-                                    const void* pixel_in, void* tq,
-                                    void* mag_part, void* grad, void* mag,
+                                    const void* pixel_in, const void* last,
+                                    void* tq, void* mag_part, void* grad,
+                                    void* mag,
                                     int mk, int tiles_per_row, void* stream) {
   if (num_tiles <= 0 || chunk <= 0 || num_items <= 0 ||
       num_split_items < 0 || num_split_items > num_items ||
-      tiles_per_row <= 0 || mk < 0) {
+      tiles_per_row <= 0 || mk < 0 || last == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -362,15 +366,16 @@ extern "C" int t3dgs_blend_backward(const void* data, const void* tile_starts,
   if (e != cudaSuccess) return static_cast<int>(e);
   const float* d = static_cast<const float*>(data);
   const float* pin = static_cast<const float*>(pixel_in);
+  const int* lst = static_cast<const int*>(last);
   float* t = static_cast<float*>(tq);
   if (num_split_items > 0) {
     backward_chunk_kernel<<<num_split_items, kPixels, 0, st>>>(
-        d, it, num_items, pin, t, mk, tiles_per_row);
+        d, it, num_items, pin, lst, t, mk, tiles_per_row);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   blend_backward_kernel<<<num_items, kPixels, 0, st>>>(
-      d, it, num_items, pin, t, static_cast<float*>(grad),
+      d, it, num_items, pin, lst, t, static_cast<float*>(grad),
       static_cast<float*>(mag_part), cn, static_cast<float*>(mag),
       num_split_items, mk, tiles_per_row);
   return static_cast<int>(cudaGetLastError());

@@ -120,7 +120,9 @@ struct SlabRows {
 // counts the same groups in every thread.
 //
 // Per batch b the kernel does: wait(); barrier; unpack(b); barrier;
-// issue(b + 2); then reads keys[0, count(b)).
+// issue(b + 2); then reads keys[0, count(b)). Key columns go up to the
+// int32 ranges' 2^31 - 1, so a batch's first column is formed in 64 bits:
+// issue(b + 2) asks for batches past the range's end.
 template <class Rows, int BATCH>
 struct Stager {
   uint32_t (*raw)[Rows::kRows][BATCH];  // [2]
@@ -130,13 +132,17 @@ struct Stager {
   int start, end, k;
 
   __device__ __forceinline__ int batches() const {
-    return end > start ? (end - start + BATCH - 1) / BATCH : 0;
+    return end > start ? (end - start - 1) / BATCH + 1 : 0;
   }
+  // first column of batch b < batches()
   __device__ __forceinline__ int first(int b) const {
     return start + b * BATCH;
   }
+  // keys of batch b (<= 0 past the range's end)
   __device__ __forceinline__ int count(int b) const {
-    return min(BATCH, end - first(b));
+    return static_cast<int>(min(static_cast<long long>(BATCH),
+                                static_cast<long long>(end) - start -
+                                    static_cast<long long>(b) * BATCH));
   }
   __device__ __forceinline__ void issue(int b) {
     if (k < count(b)) {
@@ -245,12 +251,14 @@ __device__ __forceinline__ int2 block_exclusive_sum(int2& v) {
 // Tile t's range clamped into [0, mk] (a malformed range reads no memory
 // outside the slab; the wrapper cannot check the values without a host
 // sync), and its count of chunks of at most `chunk` keys: (start, end, n).
+// (No sum here passes the range's end, which an int32 holds.)
 __device__ __forceinline__ int3 tile_chunks(const int* tile_starts,
                                             const int* tile_ends, int t,
                                             int mk, int chunk) {
   const int start = min(max(tile_starts[t], 0), mk);
   const int end = max(min(tile_ends[t], mk), start);
-  return make_int3(start, end, max(1, (end - start + chunk - 1) / chunk));
+  return make_int3(start, end,
+                   end > start ? (end - start - 1) / chunk + 1 : 1);
 }
 
 // The work list, by one block of kBuildThreads threads: thread k takes a
@@ -292,9 +300,10 @@ build_work_kernel(const int* __restrict__ tile_starts,
     counters[t] = 0;
     for (int j = 0; j < c.z && first + j < num_items; ++j) {
       const int i = first + j;
+      const int key0 = c.x + j * chunk;
       items[kItemTile * num_items + i] = t;
-      items[kItemStart * num_items + i] = c.x + j * chunk;
-      items[kItemEnd * num_items + i] = min(c.x + (j + 1) * chunk, c.y);
+      items[kItemStart * num_items + i] = key0;
+      items[kItemEnd * num_items + i] = key0 + min(chunk, c.y - key0);
       items[kItemIndex * num_items + i] = j;
       items[kItemCount * num_items + i] = c.z;
     }

@@ -53,11 +53,12 @@
 //    rounding order, and chunk j blends from it with the same saturation
 //    test.
 //  - Merge (in pass B): each chunk of a split tile writes its partials (r,
-//    g, b, sum w, sum w d, last, count, T at its end) and its state (ran
-//    through, saturated in this chunk, or started saturated) and counts
-//    itself done on the tile's counter; the last chunk to finish sums them
-//    in chunk order, taking last as the max and T from the chunk summed
-//    last, and computes depth after the merge. It stops before a chunk that
+//    g, b, sum w, sum w d, count, T at its end; with the full outputs its
+//    `last` too, as an int) and its state (ran through, saturated in this
+//    chunk, or started saturated) and counts itself done on the tile's
+//    counter; the last chunk to finish sums them in chunk order, taking
+//    last as the int max and T from the chunk summed last, and computes
+//    depth after the merge. It stops before a chunk that
 //    started saturated and after the chunk in which the pixel saturated.
 //    Where T_in(j + 1) = T_in(j) T_chunk(j) rounds to >= 1e-4 although pass
 //    B saturated the pixel in chunk j, chunk j + 1 starts active; with T_in
@@ -69,6 +70,15 @@
 //    passes the saturating key, and K3, which takes every non-skipped key
 //    below `last`, replays exactly the keys blended here. No float
 //    atomics: a frame is the same from run to run.
+//
+// `last` as an integer. The full outputs (K2) also write each pixel's `last`
+// (slab column of the last contributing key + 1) into an int32 buffer, for
+// the backward (blend_backward.cu), which takes every non-skipped key
+// below it. A float holds every integer only up to 2^24, so the output's
+// float row 6 (kept, as the TPU kernel has it) would move `last` by a
+// column or more in a slab of more than 2^24 keys; the int buffer and the
+// int partials carry it exactly up to the int32 ranges' 2^31 - 1. K1
+// (RGB_ONLY) writes no `last` at all.
 //
 // Deliberately not carried over from the TPU kernel: its log-doubling prefix
 // product for the transmittance (see blend_common.cuh for its monomial
@@ -87,9 +97,9 @@ using namespace t3dgs;
 
 constexpr int kOutRows = 8;
 // partial rows of a chunk of a split tile (blend_cuda.py PARTIAL_ROWS)
-constexpr int kPartRows = 9;
-enum PartRow { kPartR = 0, kPartG, kPartB, kPartW, kPartWD, kPartLast,
-               kPartCount, kPartT, kPartState };
+constexpr int kPartRows = 8;
+enum PartRow { kPartR = 0, kPartG, kPartB, kPartW, kPartWD, kPartCount,
+               kPartT, kPartState };
 // what a chunk did to a pixel (row kPartState)
 enum ChunkState { kRanThrough = 0, kSaturatedHere = 1, kStartedSaturated = 2 };
 
@@ -138,12 +148,15 @@ chunk_transmittance_kernel(const uint32_t* __restrict__ data,
   tchunk[static_cast<size_t>(i) * kPixels + p] = T;
 }
 
-// One pixel's output rows (blend_cuda.py OUT_*).
+// One pixel's output rows (blend_cuda.py OUT_*), and with the full outputs
+// its `last` in last_out.
 template <bool RGB_ONLY>
-__device__ __forceinline__ void write_out(float* out, int tile, int p, float r,
-                                          float g, float b, float sw,
-                                          float swd, float T, float last,
-                                          float count) {
+__device__ __forceinline__ void write_out(float* out, int* last_out, int tile,
+                                          int p, float r, float g, float b,
+                                          float sw, float swd, float T,
+                                          int last, float count) {
+  const size_t px = static_cast<size_t>(tile) * kPixels + p;
+  if (!RGB_ONLY) last_out[px] = last;
   float* o = out + static_cast<size_t>(tile) * kOutRows * kPixels + p;
   o[0 * kPixels] = r;
   o[1 * kPixels] = g;
@@ -151,20 +164,22 @@ __device__ __forceinline__ void write_out(float* out, int tile, int p, float r,
   o[3 * kPixels] = RGB_ONLY ? 0.0f : swd / fmaxf(sw, 1e-6f);
   o[4 * kPixels] = 1.0f - T;
   o[5 * kPixels] = sw;
-  o[6 * kPixels] = RGB_ONLY ? 0.0f : last;
+  o[6 * kPixels] = RGB_ONLY ? 0.0f : static_cast<float>(last);
   o[7 * kPixels] = RGB_ONLY ? 0.0f : count;
 }
 
 // Pass B: blend one work item. A tile of one chunk writes its output; a
 // chunk of a split tile starts from T_in and writes its partials, and the
-// tile's last chunk to finish merges them.
+// tile's last chunk to finish merges them. last_out and part_last are
+// touched only with the full outputs (!RGB_ONLY).
 template <bool PACKED8, bool RGB_ONLY>
 __global__ void __launch_bounds__(kPixels)
 blend_forward_kernel(const uint32_t* __restrict__ data,
                      const int* __restrict__ items, int stride,
                      const float* __restrict__ tchunk,
-                     float* __restrict__ partial, int* __restrict__ counters,
-                     float* __restrict__ out, int num_split_items, int mk,
+                     float* __restrict__ partial, int* __restrict__ part_last,
+                     int* __restrict__ counters, float* __restrict__ out,
+                     int* __restrict__ last_out, int num_split_items, int mk,
                      int tiles_per_row) {
   using Rows = SlabRows<PACKED8, !RGB_ONLY>;
   __shared__ __align__(16) uint32_t raw[2][Rows::kRows][kPixels];
@@ -228,8 +243,8 @@ blend_forward_kernel(const uint32_t* __restrict__ data,
   st.drain();
 
   if (w.n <= 1) {  // every output element is written, empty tiles included
-    write_out<RGB_ONLY>(out, w.tile, p, acc_r, acc_g, acc_b, acc_w, acc_d, T,
-                        static_cast<float>(last), static_cast<float>(count));
+    write_out<RGB_ONLY>(out, last_out, w.tile, p, acc_r, acc_g, acc_b, acc_w,
+                        acc_d, T, last, static_cast<float>(count));
     return;
   }
   float* o = partial + static_cast<size_t>(i) * kPartRows * kPixels + p;
@@ -238,23 +253,24 @@ blend_forward_kernel(const uint32_t* __restrict__ data,
   o[kPartB * kPixels] = acc_b;
   o[kPartW * kPixels] = acc_w;
   o[kPartWD * kPixels] = acc_d;
-  o[kPartLast * kPixels] = static_cast<float>(last);
   o[kPartCount * kPixels] = static_cast<float>(count);
   o[kPartT * kPixels] = T;
   o[kPartState * kPixels] = static_cast<float>(
       !active ? kStartedSaturated : (done ? kSaturatedHere : kRanThrough));
+  if (!RGB_ONLY) part_last[static_cast<size_t>(i) * kPixels + p] = last;
   // Merge: the tile's last chunk to finish sums the partials of its
   // chunks in chunk order up to the one that saturated the pixel, takes
-  // last as the max and T from the chunk summed last, and computes depth
-  // after the sums.
+  // last as the int max and T from the chunk summed last, and computes
+  // depth after the sums.
   __shared__ int s_last_chunk;
   if (!last_chunk_of_tile(counters, w.tile, w.n, &s_last_chunk)) return;
-  float r = 0.0f, g = 0.0f, bl = 0.0f, sw = 0.0f, swd = 0.0f, lst = 0.0f,
-        cnt = 0.0f, t_out = 1.0f;
+  float r = 0.0f, g = 0.0f, bl = 0.0f, sw = 0.0f, swd = 0.0f, cnt = 0.0f,
+        t_out = 1.0f;
+  int lst = 0;
   for (int c = 0; c < w.n; ++c) {
     // written by other blocks: read past the L1 cache
-    const float* s =
-        partial + static_cast<size_t>(i - w.j + c) * kPartRows * kPixels + p;
+    const size_t item = static_cast<size_t>(i - w.j + c);
+    const float* s = partial + item * kPartRows * kPixels + p;
     const float state = __ldcg(s + kPartState * kPixels);
     if (state == kStartedSaturated) break;  // and so did every later chunk
     r += __ldcg(s + kPartR * kPixels);
@@ -262,19 +278,20 @@ blend_forward_kernel(const uint32_t* __restrict__ data,
     bl += __ldcg(s + kPartB * kPixels);
     sw += __ldcg(s + kPartW * kPixels);
     swd += __ldcg(s + kPartWD * kPixels);
-    lst = fmaxf(lst, __ldcg(s + kPartLast * kPixels));
+    if (!RGB_ONLY) lst = max(lst, __ldcg(part_last + item * kPixels + p));
     cnt += __ldcg(s + kPartCount * kPixels);
     t_out = __ldcg(s + kPartT * kPixels);
     if (state == kSaturatedHere) break;
   }
-  write_out<RGB_ONLY>(out, w.tile, p, r, g, bl, sw, swd, t_out, lst, cnt);
+  write_out<RGB_ONLY>(out, last_out, w.tile, p, r, g, bl, sw, swd, t_out, lst,
+                      cnt);
 }
 
 template <bool PACKED8, bool RGB_ONLY>
 cudaError_t launch(const uint32_t* data, const int* items, int num_items,
                    int num_split_items, int* counters, float* tchunk,
-                   float* partial, float* out, int mk, int tiles_per_row,
-                   cudaStream_t st) {
+                   float* partial, int* part_last, float* out, int* last_out,
+                   int mk, int tiles_per_row, cudaStream_t st) {
   if (num_split_items > 0) {
     chunk_transmittance_kernel<PACKED8><<<num_split_items, kPixels, 0, st>>>(
         data, items, num_items, tchunk, mk, tiles_per_row);
@@ -282,8 +299,8 @@ cudaError_t launch(const uint32_t* data, const int* items, int num_items,
     if (e != cudaSuccess) return e;
   }
   blend_forward_kernel<PACKED8, RGB_ONLY><<<num_items, kPixels, 0, st>>>(
-      data, items, num_items, tchunk, partial, counters, out, num_split_items,
-      mk, tiles_per_row);
+      data, items, num_items, tchunk, partial, part_last, counters, out,
+      last_out, num_split_items, mk, tiles_per_row);
   return cudaGetLastError();
 }
 
@@ -312,22 +329,26 @@ extern "C" int t3dgs_build_work_list(const void* tile_starts,
 // (5, num_items) int32 and counters: (num_tiles,) int32 scratch for the
 // work list of chunks of at most `chunk` keys, num_items and
 // num_split_items its bounds (blend_cuda.py ChunkWorkList); tchunk:
-// (max(num_split_items, 1), 256) and partial: (max(num_split_items, 1), 9,
-// 256) f32 scratch; out: (num_tiles, 8, 256)
-// f32, every element written. Launches the work list, pass A (if
-// num_split_items > 0) and pass B on `stream` and returns the first
-// cudaGetLastError() that is not 0 (0 on success). packed8 requires
-// rgb_only.
+// (max(num_split_items, 1), 256) and partial: (max(num_split_items, 1), 8,
+// 256) f32 scratch; out: (num_tiles, 8, 256) f32, every element written.
+// Without rgb_only also part_last: (max(num_split_items, 1), 256) int32
+// scratch, and last_out: (num_tiles, 256) int32, every element written;
+// with rgb_only both may be null and are not touched. Launches the work
+// list, pass A (if num_split_items > 0) and pass B on `stream` and returns
+// the first cudaGetLastError() that is not 0 (0 on success). packed8
+// requires rgb_only.
 extern "C" int t3dgs_blend_forward(const void* data, const void* tile_starts,
                                    const void* tile_ends, int num_tiles,
                                    int chunk, void* items, int num_items,
                                    int num_split_items, void* counters,
-                                   void* tchunk, void* partial, void* out,
+                                   void* tchunk, void* partial,
+                                   void* part_last, void* out, void* last_out,
                                    int mk, int tiles_per_row, int packed8,
                                    int rgb_only, void* stream) {
   if (num_tiles <= 0 || chunk <= 0 || num_items <= 0 ||
       num_split_items < 0 || num_split_items > num_items ||
-      tiles_per_row <= 0 || mk < 0 || (packed8 && !rgb_only)) {
+      tiles_per_row <= 0 || mk < 0 || (packed8 && !rgb_only) ||
+      (!rgb_only && (part_last == nullptr || last_out == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -340,16 +361,18 @@ extern "C" int t3dgs_blend_forward(const void* data, const void* tile_starts,
   const uint32_t* d = static_cast<const uint32_t*>(data);
   float* tc = static_cast<float*>(tchunk);
   float* pa = static_cast<float*>(partial);
+  int* pl = static_cast<int*>(part_last);
   float* o = static_cast<float*>(out);
+  int* lo = static_cast<int*>(last_out);
   if (packed8) {
-    e = launch<true, true>(d, it, num_items, num_split_items, cn, tc, pa, o,
-                           mk, tiles_per_row, st);
+    e = launch<true, true>(d, it, num_items, num_split_items, cn, tc, pa, pl,
+                           o, lo, mk, tiles_per_row, st);
   } else if (rgb_only) {
-    e = launch<false, true>(d, it, num_items, num_split_items, cn, tc, pa, o,
-                            mk, tiles_per_row, st);
+    e = launch<false, true>(d, it, num_items, num_split_items, cn, tc, pa, pl,
+                            o, lo, mk, tiles_per_row, st);
   } else {
-    e = launch<false, false>(d, it, num_items, num_split_items, cn, tc, pa, o,
-                             mk, tiles_per_row, st);
+    e = launch<false, false>(d, it, num_items, num_split_items, cn, tc, pa,
+                             pl, o, lo, mk, tiles_per_row, st);
   }
   return static_cast<int>(e);
 }

@@ -53,15 +53,15 @@ def _declare(lib):
     fn.restype = i
     fn = lib.t3dgs_blend_forward
     # data, tile_starts, tile_ends, num_tiles, chunk, items, num_items,
-    # num_split_items, counters, tchunk, partial, out, mk, tiles_per_row,
-    # packed8, rgb_only, stream
-    fn.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, i, i, i, i, p]
+    # num_split_items, counters, tchunk, partial, part_last, out, last_out,
+    # mk, tiles_per_row, packed8, rgb_only, stream
+    fn.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p]
     fn.restype = i
     fn = lib.t3dgs_blend_backward
     # data, tile_starts, tile_ends, num_tiles, chunk, items, num_items,
-    # num_split_items, counters, pixel_in, tq, mag_part, grad, mag, mk,
-    # tiles_per_row, stream
-    fn.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, p]
+    # num_split_items, counters, pixel_in, last, tq, mag_part, grad, mag,
+    # mk, tiles_per_row, stream
+    fn.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, p, i, i, p]
     fn.restype = i
     return lib
 

@@ -16,7 +16,9 @@ Output per tile, (num_tiles, 8, 256) f32, rows ``OUT_*``:
 [r, g, b, depth, 1 - T, sum w, last + 1, count]. With ``rgb_only`` the
 depth, last and count rows are 0. ``depth`` is sum(w d) / max(sum w, 1e-6);
 ``last`` is the slab column of the last contributing key and ``count`` the
-number of contributing keys.
+number of contributing keys. ``blend_forward_with_last`` also returns
+``last`` as an exact (num_tiles, 256) int32 tensor: the float row is exact
+only up to 2**24 slab columns.
 
 The backward (``blend_backward``) replays the blend per pixel over the keys
 the forward blended (not skipped, and below the forward's ``last``) and
@@ -30,9 +32,10 @@ blend the chunks of one tile in separate blocks from each chunk's
 transmittance at its start, and merge them in chunk order; the plain
 versions stay sequential and are the yardstick of correctness.
 
-``blend_forward`` and ``blend_backward`` run their kernel on CUDA tensors
-and the plain version on CPU tensors; any other device raises. There is no
-fallback.
+``blend_forward``, ``blend_forward_with_last`` and ``blend_backward`` run
+their kernel on CUDA tensors and the plain version on CPU tensors; any
+other device raises. There is no fallback. Slabs hold at most 2**31 - 1
+columns (``MAX_COLUMNS``): the tile ranges and the work list are int32.
 """
 
 from __future__ import annotations
@@ -72,8 +75,12 @@ TRANSMITTANCE_SATURATION = 1e-4
  OUT_COUNT) = range(8)
 
 # Row of the backward's (num_tiles, 8, 256) per-pixel input [g_r, g_g,
-# g_b, C_r, C_g, C_b, last, 0] that holds the forward's OUT_LAST_EFF
+# g_b, C_r, C_g, C_b, last, 0] that holds the forward's OUT_LAST_EFF (read
+# only when the backward is given no int32 `last`)
 PIXEL_IN_LAST = 6
+# Most slab columns `last` can pass as a float row: above, float32 rounds
+# some integers
+FLOAT_EXACT_COLUMNS = 2 ** 24
 
 # Rows of the backward's (16, MK) per-key gradient slab (rows 6, 7 and
 # 13..15 stay 0)
@@ -108,11 +115,13 @@ def reset_launch_counts():
 # scene's 22,500-key tile becomes 30 chunks, each about as long as an
 # ordinary tile.
 CHUNK_KEYS = 768
-# Rows of the forward's per-chunk partials of a split tile (r, g, b, sum w,
-# sum w d, last, count, T at its end, state; csrc/blend_forward.cu PartRow)
-PARTIAL_ROWS = 9
-# The backward reads the forward's `last` as a float, exact below 2**24
-MAX_BACKWARD_COLUMNS = 2 ** 24
+# Float rows of the forward's per-chunk partials of a split tile (r, g, b,
+# sum w, sum w d, count, T at its end, state; csrc/blend_forward.cu
+# PartRow); the full forward keeps each chunk's `last` in a separate int32
+# scratch
+PARTIAL_ROWS = 8
+# The tile ranges, the work list and `last` are int32
+MAX_COLUMNS = 2 ** 31 - 1
 
 # Rows of the (5, num_items) int32 work list
 ITEM_TILE, ITEM_START, ITEM_END, ITEM_INDEX, ITEM_COUNT = range(5)
@@ -238,9 +247,12 @@ def _alpha_exp(cols, k, px, py):
                      + logw), dx, dy
 
 
-def blend_forward_torch(point_data, tile_starts, tile_ends, *,
-                        num_tiles, tiles_per_row, rgb_only):
-    """Plain PyTorch version of the blend kernel, same inputs and output.
+def blend_forward_with_last_torch(point_data, tile_starts, tile_ends, *,
+                                  num_tiles, tiles_per_row, rgb_only=False):
+    """Plain PyTorch version of the blend kernel: (the (num_tiles, 8, 256)
+    output of `blend_forward`, `last` (num_tiles, 256) int32, 0 with
+    `rgb_only`). `last` is tracked as an integer; the output's float row
+    is made from it at the end.
 
     Vectorised over all (num_tiles, 256) pixels; loops in Python over the
     key position j within each tile's segment, up to the longest segment,
@@ -256,7 +268,7 @@ def blend_forward_torch(point_data, tile_starts, tile_ends, *,
     T = torch.ones(shape, dtype=torch.float32, device=device)
     done = torch.zeros(shape, dtype=torch.bool, device=device)
     acc = torch.zeros((5,) + shape, dtype=torch.float32, device=device)
-    last = torch.zeros(shape, dtype=torch.float32, device=device)
+    last = torch.zeros(shape, dtype=torch.int64, device=device)
     count = torch.zeros(shape, dtype=torch.float32, device=device)
     max_len = int(seg_len.max()) if num_tiles else 0
     for j in range(max_len):
@@ -279,22 +291,34 @@ def blend_forward_torch(point_data, tile_starts, tile_ends, *,
              torch.ones_like(col(dep))])
         T = torch.where(contrib, t_next, T)
         if not rgb_only:
-            last = torch.where(contrib, (k[:, None] + 1).to(torch.float32),
-                               last)
+            last = torch.where(contrib, k[:, None] + 1, last)
             count = count + contrib.to(torch.float32)
 
     zero = torch.zeros(shape, dtype=torch.float32, device=device)
     if rgb_only:
-        depth, last, count = zero, zero, zero
+        depth, count = zero, zero
     else:
         depth = acc[3] / torch.clamp(acc[4], min=1e-6)
-    return torch.stack([acc[0], acc[1], acc[2], depth, 1.0 - T, acc[4],
-                        last, count], dim=1)
+    out = torch.stack([acc[0], acc[1], acc[2], depth, 1.0 - T, acc[4],
+                       last.to(torch.float32), count], dim=1)
+    return out, last.to(torch.int32)
+
+
+def blend_forward_torch(point_data, tile_starts, tile_ends, *,
+                        num_tiles, tiles_per_row, rgb_only):
+    """Plain PyTorch version of the blend kernel, same inputs and output
+    (see `blend_forward_with_last_torch`)."""
+    return blend_forward_with_last_torch(
+        point_data, tile_starts, tile_ends, num_tiles=num_tiles,
+        tiles_per_row=tiles_per_row, rgb_only=rgb_only)[0]
 
 
 def _check_inputs(point_data, tile_starts, tile_ends, num_tiles, rgb_only):
     if point_data.dim() != 2:
         raise ValueError(f"point_data must be 2-D, got {tuple(point_data.shape)}")
+    if point_data.shape[1] > MAX_COLUMNS:
+        raise ValueError(f"the blend takes at most 2**31 - 1 slab columns "
+                         f"(int32 ranges), got {point_data.shape[1]}")
     rows = point_data.shape[0]
     if rows == NUM_DATA_ROWS:
         if point_data.dtype != torch.float32:
@@ -324,21 +348,17 @@ def _check_inputs(point_data, tile_starts, tile_ends, num_tiles, rgb_only):
         raise ValueError(f"num_tiles must be >= 1, got {num_tiles}")
 
 
-def blend_forward(point_data, tile_starts, tile_ends, *,
-                  num_tiles, tiles_per_row, rgb_only):
-    """Blend every tile. point_data: (16, MK) f32 wide16 or (8, MK) int32
-    packed8 slab, columns in sorted key order; tile_starts/ends: (num_tiles,)
-    int32, all contiguous. Returns (num_tiles, 8, 256) f32 (rows OUT_*).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel;
-    any other device raises."""
+def _forward(point_data, tile_starts, tile_ends, num_tiles, tiles_per_row,
+             rgb_only):
+    """(out, last: None with rgb_only) of the plain version on CPU tensors
+    or of the kernel on CUDA tensors; any other device raises."""
     _check_inputs(point_data, tile_starts, tile_ends, num_tiles, rgb_only)
     device = point_data.device
     if device.type == "cpu":
-        return blend_forward_torch(point_data, tile_starts, tile_ends,
-                                   num_tiles=num_tiles,
-                                   tiles_per_row=tiles_per_row,
-                                   rgb_only=rgb_only)
+        out, last = blend_forward_with_last_torch(
+            point_data, tile_starts, tile_ends, num_tiles=num_tiles,
+            tiles_per_row=tiles_per_row, rgb_only=rgb_only)
+        return out, None if rgb_only else last
     if device.type != "cuda":
         raise RuntimeError(f"blend_forward runs on cpu or cuda tensors, "
                            f"got {device}")
@@ -348,38 +368,71 @@ def blend_forward(point_data, tile_starts, tile_ends, *,
     work, counters = _work_scratch(num_tiles, mk, device)
     out = torch.empty((num_tiles, 8, PIXELS_PER_TILE), dtype=torch.float32,
                       device=device)
-    # per item of a split tile: T_chunk, and the partials
+    # per item of a split tile: T_chunk, and the partials (the full
+    # forward's `last` in its own int32 scratch)
     scratch = max(work.num_split_items, 1)
     tchunk = torch.empty((scratch, PIXELS_PER_TILE), dtype=torch.float32,
                          device=device)
     partial = torch.empty((scratch, PARTIAL_ROWS, PIXELS_PER_TILE),
                           dtype=torch.float32, device=device)
+    last = part_last = None
+    if not rgb_only:
+        last = torch.empty((num_tiles, PIXELS_PER_TILE), dtype=torch.int32,
+                           device=device)
+        part_last = torch.empty((scratch, PIXELS_PER_TILE),
+                                dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.t3dgs_blend_forward(
             point_data.data_ptr(), tile_starts.data_ptr(),
             tile_ends.data_ptr(), num_tiles, CHUNK_KEYS, work.items.data_ptr(),
             work.num_items, work.num_split_items, counters.data_ptr(),
-            tchunk.data_ptr(), partial.data_ptr(), out.data_ptr(), mk,
-            tiles_per_row, int(point_data.shape[0] == PACKED_DATA_ROWS),
-            int(rgb_only), stream)
+            tchunk.data_ptr(), partial.data_ptr(),
+            None if rgb_only else part_last.data_ptr(), out.data_ptr(),
+            None if rgb_only else last.data_ptr(), mk, tiles_per_row,
+            int(point_data.shape[0] == PACKED_DATA_ROWS), int(rgb_only),
+            stream)
     if err != 0:
         raise RuntimeError(f"blend_forward kernel launch failed: CUDA error "
                            f"{err}")
     launch_counts["blend_forward_rgb" if rgb_only else "blend_forward"] += 1
-    return out
+    return out, last
+
+
+def blend_forward(point_data, tile_starts, tile_ends, *,
+                  num_tiles, tiles_per_row, rgb_only):
+    """Blend every tile. point_data: (16, MK) f32 wide16 or (8, MK) int32
+    packed8 slab, columns in sorted key order; tile_starts/ends: (num_tiles,)
+    int32, all contiguous. Returns (num_tiles, 8, 256) f32 (rows OUT_*).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel;
+    any other device raises."""
+    return _forward(point_data, tile_starts, tile_ends, num_tiles,
+                    tiles_per_row, rgb_only)[0]
+
+
+def blend_forward_with_last(point_data, tile_starts, tile_ends, *,
+                            num_tiles, tiles_per_row):
+    """The full blend (`blend_forward` with rgb_only=False, wide16 slab) and
+    each pixel's `last`, the slab column of its last contributing key + 1,
+    as an exact (num_tiles, 256) int32 tensor: what `blend_backward` takes
+    (the output's float row OUT_LAST_EFF is exact only up to 2**24)."""
+    return _forward(point_data, tile_starts, tile_ends, num_tiles,
+                    tiles_per_row, False)
 
 
 def blend_backward_torch(point_data, tile_starts, tile_ends, pixel_in, *,
-                         num_tiles, tiles_per_row, dtype=torch.float32):
+                         num_tiles, tiles_per_row, dtype=torch.float32,
+                         last=None):
     """Plain PyTorch version of the backward kernel, same inputs and outputs.
 
     Replays the forward per pixel (vectorised over all (num_tiles, 256)
     pixels, one Python iteration per key position of the longest segment)
     over the keys the forward blended: not skipped (alpha >= 1/255) and
-    below the forward's `last` (pixel_in row 6; for the sequential forward
-    every key between the last contributing key and the saturating one is
-    skipped, so no saturation test is needed). For each such key i:
+    below the forward's `last` (the int tensor `last`, compared in int64,
+    or if it is None pixel_in row 6; for the sequential forward every key
+    between the last contributing key and the saturating one is skipped, so
+    no saturation test is needed). For each such key i:
       dL/dalpha_i = c_i.g T_i - (S - P_i) / (1 - alpha_i), with S = g.C and
       P_i = sum_{j<=i} w_j c_j.g;
       G = dL/dalpha_i * exp(exponent): straight through the 0.99 clamp; 0
@@ -403,7 +456,7 @@ def blend_backward_torch(point_data, tile_starts, tile_ends, pixel_in, *,
     seg_len = (tile_ends - tile_starts).long()
     px32, py32 = _pixel_centres(num_tiles, tiles_per_row, device)
     px, py = px32.to(dtype), py32.to(dtype)
-    last = pixel_in[:, PIXEL_IN_LAST]
+    last = (pixel_in[:, PIXEL_IN_LAST] if last is None else last).long()
     pixel_in = pixel_in.to(dtype)
     g_r, g_g, g_b = pixel_in[:, 0], pixel_in[:, 1], pixel_in[:, 2]
     S = g_r * pixel_in[:, 3] + g_g * pixel_in[:, 4] + g_b * pixel_in[:, 5]
@@ -427,7 +480,7 @@ def blend_backward_torch(point_data, tile_starts, tile_ends, pixel_in, *,
         alpha_exp, dx, dy = _alpha_exp(cols, k, px, py)
         alpha32 = alpha_exp if dtype == torch.float32 else _alpha_exp(
             cols32, k, px32, py32)[0]
-        contrib = (in_seg[:, None] & (k[:, None].to(torch.float32) < last)
+        contrib = (in_seg[:, None] & (k[:, None] < last)
                    & (alpha32 >= ALPHA_SKIP_THRESHOLD))
         alpha = torch.clamp(alpha_exp, max=ALPHA_CLAMP)
         t_next = T * (1.0 - alpha)
@@ -455,17 +508,26 @@ def blend_backward_torch(point_data, tile_starts, tile_ends, pixel_in, *,
 
 
 def _check_backward_inputs(point_data, tile_starts, tile_ends, pixel_in,
-                           num_tiles):
+                           num_tiles, last):
     if point_data.dim() != 2 or point_data.shape[0] != NUM_DATA_ROWS \
             or point_data.dtype != torch.float32:
         raise ValueError(f"the backward takes the ({NUM_DATA_ROWS}, MK) f32 "
                          f"wide16 slab, got {point_data.dtype} "
                          f"{tuple(point_data.shape)}")
-    if point_data.shape[1] >= MAX_BACKWARD_COLUMNS:
-        raise ValueError(f"the backward takes fewer than 2**24 slab columns "
-                         f"(the forward's `last` is exact as a float only "
-                         f"below), got {point_data.shape[1]}")
+    if last is None and point_data.shape[1] > FLOAT_EXACT_COLUMNS:
+        raise ValueError(f"{point_data.shape[1]} slab columns: pass the "
+                         f"forward's int32 `last` (blend_forward_with_last);"
+                         f" pixel_in's float row is exact only up to 2**24")
     _check_inputs(point_data, tile_starts, tile_ends, num_tiles, False)
+    if last is not None and (
+            last.dtype != torch.int32
+            or tuple(last.shape) != (num_tiles, PIXELS_PER_TILE)
+            or last.device != point_data.device
+            or not last.is_contiguous()):
+        raise ValueError(f"last must be contiguous int32 of shape "
+                         f"({num_tiles}, {PIXELS_PER_TILE}) on "
+                         f"{point_data.device}, got {last.dtype} "
+                         f"{tuple(last.shape)} on {last.device}")
     if (pixel_in.dtype != torch.float32
             or tuple(pixel_in.shape) != (num_tiles, 8, PIXELS_PER_TILE)):
         raise ValueError(f"pixel_in must be f32 of shape ({num_tiles}, 8, "
@@ -479,12 +541,14 @@ def _check_backward_inputs(point_data, tile_starts, tile_ends, pixel_in,
 
 
 def blend_backward(point_data, tile_starts, tile_ends, pixel_in, *,
-                   num_tiles, tiles_per_row):
+                   num_tiles, tiles_per_row, last=None):
     """Backward of the full blend. point_data: the (16, MK) f32 wide16 slab
     the forward blended; tile_starts/ends: (num_tiles,) int32; pixel_in:
     (num_tiles, 8, 256) f32 with rows [g_r, g_g, g_b, C_r, C_g, C_b, last,
     0] (image cotangent, forward colour, the forward's OUT_LAST_EFF row);
-    all contiguous; fewer than 2**24 slab columns.
+    last: the forward's (num_tiles, 256) int32 `last`
+    (`blend_forward_with_last`), or None to read pixel_in row 6 instead
+    (up to 2**24 slab columns); all contiguous.
 
     Returns (grad_data (16, MK) f32, GROW_* rows; mag_image (num_tiles, 8,
     256) f32, rows [sum |gx|, sum |gy|, 0, ...]).
@@ -492,17 +556,19 @@ def blend_backward(point_data, tile_starts, tile_ends, pixel_in, *,
     CPU tensors take the plain version; CUDA tensors launch the kernel;
     any other device raises."""
     _check_backward_inputs(point_data, tile_starts, tile_ends, pixel_in,
-                           num_tiles)
+                           num_tiles, last)
     device = point_data.device
     if device.type == "cpu":
         return blend_backward_torch(point_data, tile_starts, tile_ends,
                                     pixel_in, num_tiles=num_tiles,
-                                    tiles_per_row=tiles_per_row)
+                                    tiles_per_row=tiles_per_row, last=last)
     if device.type != "cuda":
         raise RuntimeError(f"blend_backward runs on cpu or cuda tensors, "
                            f"got {device}")
     from ._build import load_library
     lib = load_library()
+    if last is None:
+        last = pixel_in[:, PIXEL_IN_LAST].to(torch.int32).contiguous()
     mk = point_data.shape[1]
     work, counters = _work_scratch(num_tiles, mk, device)
     grad = torch.zeros((NUM_DATA_ROWS, mk), dtype=torch.float32,
@@ -519,7 +585,8 @@ def blend_backward(point_data, tile_starts, tile_ends, pixel_in, *,
             point_data.data_ptr(), tile_starts.data_ptr(),
             tile_ends.data_ptr(), num_tiles, CHUNK_KEYS, work.items.data_ptr(),
             work.num_items, work.num_split_items, counters.data_ptr(),
-            pixel_in.data_ptr(), tq.data_ptr(), mag_part.data_ptr(),
+            pixel_in.data_ptr(), last.data_ptr(), tq.data_ptr(),
+            mag_part.data_ptr(),
             grad.data_ptr(), mag.data_ptr(), mk, tiles_per_row, stream)
     if err != 0:
         raise RuntimeError(f"blend_backward kernel launch failed: CUDA error "

@@ -212,7 +212,8 @@ def _result_from_tile_out(tile_out, attrs, binning, camera_info):
 
 def _backward_pixel_in(tile_out, g_image, grid: TileGrid):
     """The backward kernel's per-pixel input (T, 8, 256): the image
-    cotangent, the forward's colour and its `last` row, then 0."""
+    cotangent, the forward's colour and its float `last` row, then 0 (the
+    rasterizer hands the backward the exact int32 `last` beside it)."""
     g_tiles = _image_to_tiles(g_image.to(torch.float32), grid)  # (T, 3, 256)
     tile_out = tile_out.detach()
     return torch.cat([g_tiles, tile_out[:, 0:3],
@@ -221,13 +222,15 @@ def _backward_pixel_in(tile_out, g_image, grid: TileGrid):
                      dim=1).contiguous()
 
 
-def _backward_blend(tile_out, g_image, binning, grid: TileGrid):
-    """The backward kernel on the image cotangent: (per-key gradient slab
-    (16, MK), per-pixel magnitude tiles (T, 8, 256))."""
+def _backward_blend(tile_out, last, g_image, binning, grid: TileGrid):
+    """The backward kernel on the image cotangent, given the forward's
+    output and its int32 `last`: (per-key gradient slab (16, MK),
+    per-pixel magnitude tiles (T, 8, 256))."""
     pixel_in = _backward_pixel_in(tile_out, g_image, grid)
     return BC.blend_backward(
         binning.point_data, binning.tile_starts, binning.tile_ends, pixel_in,
-        num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row)
+        num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row,
+        last=last)
 
 
 def _route_to_points(grad_data, mag_tiles, binning, grid: TileGrid, n: int):
@@ -258,23 +261,23 @@ class _Blend(torch.autograd.Function):
     """The full blend (forward kernel K2) as an autograd node: its primal
     reads the slab gathered from `cols` inside the binning, and its
     backward returns the cotangents of the 9 `cols` through the backward
-    kernel. Only the colour rows of the output carry gradient."""
+    kernel, which takes K2's int32 `last` (saved beside the output). Only
+    the colour rows of the output carry gradient."""
 
     @staticmethod
     def forward(ctx, binning, grid, n, *cols):
-        tile_out = BC.blend_forward(
+        tile_out, last = BC.blend_forward_with_last(
             binning.point_data, binning.tile_starts, binning.tile_ends,
-            num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row,
-            rgb_only=False)
+            num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row)
         ctx.binning, ctx.grid, ctx.n = binning, grid, n
-        ctx.save_for_backward(tile_out)
+        ctx.save_for_backward(tile_out, last)
         return tile_out
 
     @staticmethod
     def backward(ctx, g_tile_out):
-        tile_out, = ctx.saved_tensors
+        tile_out, last = ctx.saved_tensors
         g_image = _tiles_to_image(g_tile_out[:, 0:3], ctx.grid)
-        grad_data, mag_tiles = _backward_blend(tile_out, g_image,
+        grad_data, mag_tiles = _backward_blend(tile_out, last, g_image,
                                                ctx.binning, ctx.grid)
         cotangents, _ = _route_to_points(grad_data, mag_tiles, ctx.binning,
                                          ctx.grid, ctx.n)
@@ -347,16 +350,15 @@ def rasterize_with_vjp(
             q_pointcloud_camera, t_pointcloud_camera, camera_info, config,
             color_sh_mask, mark=mark)
     grid = TileGrid.from_camera(camera_info)
-    tile_out = BC.blend_forward(
+    tile_out, last = BC.blend_forward_with_last(
         binning.point_data, binning.tile_starts, binning.tile_ends,
-        num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row,
-        rgb_only=False)
+        num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row)
     result = _result_from_tile_out(tile_out, attrs, binning, camera_info)
     mark("forward blend")
 
     def vjp_fn(g_image):
-        grad_data, mag_tiles = _backward_blend(tile_out, g_image, binning,
-                                               grid)
+        grad_data, mag_tiles = _backward_blend(tile_out, last, g_image,
+                                               binning, grid)
         mark("backward blend")
         cotangents, stats = _route_to_points(grad_data, mag_tiles, binning,
                                              grid, n)

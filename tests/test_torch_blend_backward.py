@@ -6,7 +6,8 @@ padded with zero columns to a multiple of the Pallas chunk (128), its tile
 ranges, and per pixel a seeded normal image cotangent beside the colour of
 the Pallas forward; the port's pixel_in also carries the Pallas forward's
 `last` row in row 6 (the JAX kernel ignores rows 6-7 and re-tests
-saturation; the port blends the keys below `last`).
+saturation; the port blends the keys below `last`), or the port is given
+that `last` as int32 beside it.
 
 Per-key gradient rows and the magnitude image at rtol 2e-3 / atol 1e-4
 (the exactness tolerances: the two replays round the exponent and the
@@ -137,14 +138,120 @@ def test_backward_rejects_malformed_inputs(bad):
                           tiles_per_row=2)
 
 
-@pytest.mark.parametrize("columns", [BC.MAX_BACKWARD_COLUMNS,
-                                     BC.MAX_BACKWARD_COLUMNS + 5])
-def test_backward_refuses_2_24_columns(columns):
-    """The forward's `last` reaches the backward as a float, exact only
-    below 2**24 columns: the wrapper raises rather than round it (a view of
-    one column, so nothing large is allocated)."""
+@pytest.mark.parametrize("seed, alpha, label, cfg", AB_CASES,
+                         ids=[c[2] for c in AB_CASES])
+def test_int_last_matches_the_float_row(seed, alpha, label, cfg):
+    """The plain versions with the int32 `last`: the forward's output is
+    bitwise the float-row version's and its `last` is the float row
+    exactly; the backward given that `last` is bitwise the float-row
+    backward, and both still match the Pallas kernels (interpret mode) at
+    rtol 2e-3 / atol 1e-4."""
+    slab, starts, ends, pixel_in, kw, fwd, port_pixel_in = _inputs(
+        seed, alpha, cfg)
+    args = tuple(torch.as_tensor(x) for x in (slab, starts, ends))
+    out, last = BC.blend_forward_with_last_torch(*args, **kw)
+    assert last.dtype == torch.int32 and tuple(last.shape) == (
+        kw["num_tiles"], 256)
+    assert torch.equal(out, BC.blend_forward_torch(*args, rgb_only=False,
+                                                   **kw))
+    assert torch.equal(out[:, BC.OUT_LAST_EFF], last.to(torch.float32))
+    assert torch.equal(last.long(), out[:, BC.OUT_LAST_EFF].long())
+    assert int(last.max()) > 0
+    for row in (BC.OUT_R, BC.OUT_G, BC.OUT_B, BC.OUT_ACC_ALPHA):
+        np.testing.assert_allclose(out[:, row].numpy(), fwd[:, row],
+                                   rtol=RTOL, atol=ATOL)
+    assert_counts_close(fwd[:, BC.OUT_LAST_EFF],
+                        out[:, BC.OUT_LAST_EFF].numpy(), "last")
+
+    pin = torch.as_tensor(port_pixel_in)
+    pin[:, BC.PIXEL_IN_LAST] = out[:, BC.OUT_LAST_EFF]
+    by_row = BC.blend_backward_torch(*args, pin, **kw)
+    by_int = BC.blend_backward_torch(*args, pin, **kw, last=last)
+    assert all(torch.equal(a, b) for a, b in zip(by_row, by_int))
+    # the wrapper takes the same path on the CPU, with or without `last`
+    got = BC.blend_backward(*args, pin, **kw, last=last)
+    assert all(torch.equal(a, b) for a, b in zip(got, by_int))
+    ref_grad, ref_mag = (np.asarray(x) for x in BP.blend_backward(
+        jnp.asarray(slab), jnp.asarray(starts), jnp.asarray(ends),
+        jnp.asarray(pixel_in), **kw))
+    for name, row in FLOAT_ROWS.items():
+        np.testing.assert_allclose(by_int[0][row].numpy(), ref_grad[row],
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+    np.testing.assert_allclose(by_int[1].numpy(), ref_mag, rtol=RTOL,
+                               atol=ATOL, err_msg="magnitude image")
+
+
+@pytest.mark.parametrize("value", [2 ** 24, 2 ** 24 + 1, 2 ** 30 + 5])
+def test_rasterizer_hands_the_int_last_to_the_backward(value, monkeypatch):
+    """The rasterizer carries the forward's int32 `last` to the backward
+    unchanged, both through the autograd node of `rasterize` and through
+    `rasterize_with_vjp`; as a float32 row 2**24 + 1 would round to 2**24.
+    (The forward's `last` is replaced by `value`: a slab that wide takes
+    gigabytes, so the CPU tests do not build one; chip_smoke.py phase 3b
+    and tests/test_torch_cuda.py run one on the card.)"""
+    from taichi_3d_gaussian_splatting_torch.ops import rasterizer as R
+    real_forward, real_backward = BC.blend_forward_with_last, BC.blend_backward
+    seen = []
+
+    def forward(*args, **kw):
+        out, last = real_forward(*args, **kw)
+        return out, torch.full_like(last, value)
+
+    def backward(*args, last=None, **kw):
+        seen.append(last)
+        return real_backward(*args, last=last, **kw)
+
+    monkeypatch.setattr(BC, "blend_forward_with_last", forward)
+    monkeypatch.setattr(BC, "blend_backward", backward)
+    pc, feats = random_scene(60, seed=0)
+    scene = GaussianPointCloudScene.from_numpy(pc, feats, np.zeros(60),
+                                               np.zeros(60), "cpu")
+    q, t = (torch.as_tensor(x) for x in identity_pose())
+    cam = CameraInfo(camera_intrinsics(), 32, 32)
+    pcl = scene.point_cloud.clone().requires_grad_(True)
+    res = R.rasterize(pcl, *scene[1:], q, t, cam, RasterizerConfig())
+    res.image.sum().backward()
+    _, vjp_fn = R.rasterize_with_vjp(*scene, q, t, cam, RasterizerConfig())
+    grad_pc, _, _ = vjp_fn(torch.ones((32, 32, 3)))
+    assert len(seen) == 2
+    for last in seen:
+        assert last.dtype == torch.int32
+        assert tuple(last.shape) == (cam.num_tiles, 256)
+        assert (last.long() == value).all()
+    assert bool(torch.isfinite(pcl.grad).all())
+    assert bool(torch.isfinite(grad_pc).all())
+    if value == 2 ** 24 + 1:
+        assert int(torch.tensor(float(value), dtype=torch.float32)) != value
+
+
+@pytest.mark.parametrize("columns", [2 ** 31, 2 ** 31 + 5])
+def test_blend_refuses_more_than_int32_columns(columns):
+    """The tile ranges and the work list are int32: the wrappers refuse a
+    slab of more than 2**31 - 1 columns (a view of one column, so nothing
+    large is allocated)."""
     slab = torch.zeros((16, 1)).expand(16, columns)
     ranges = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match=r"2\*\*24"):
+    last = torch.zeros((2, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"2\*\*31 - 1"):
         BC.blend_backward(slab, ranges, ranges, torch.zeros((2, 8, 256)),
-                          num_tiles=2, tiles_per_row=2)
+                          num_tiles=2, tiles_per_row=2, last=last)
+    with pytest.raises(ValueError, match=r"2\*\*31 - 1"):
+        BC.blend_forward_with_last(slab, ranges, ranges, num_tiles=2,
+                                   tiles_per_row=2)
+
+
+def test_backward_without_int_last_refuses_wide_slabs():
+    """Past 2**24 columns the float `last` row can round, so the backward
+    then asks for the int32 `last` rather than read it; the int `last` of
+    the wrong type or shape is refused too."""
+    slab = torch.zeros((16, 1)).expand(16, 2 ** 24 + 1)
+    ranges = torch.zeros(2, dtype=torch.int32)
+    pixel_in = torch.zeros((2, 8, 256))
+    with pytest.raises(ValueError, match="int32 `last`"):
+        BC.blend_backward(slab, ranges, ranges, pixel_in, num_tiles=2,
+                          tiles_per_row=2)
+    for bad in (torch.zeros((2, 256)), torch.zeros((3, 256), dtype=torch.int32),
+                torch.zeros((2, 256), dtype=torch.int64)):
+        with pytest.raises(ValueError, match="last must be"):
+            BC.blend_backward(torch.zeros((16, 4)), ranges, ranges, pixel_in,
+                              num_tiles=2, tiles_per_row=2, last=bad)

@@ -21,8 +21,8 @@ from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
     RasterizerConfig, _project_and_bin, rasterize)
 from taichi_3d_gaussian_splatting_torch.ops.tiling import blend_slab
 
-from torch_chunk_fixtures import (NUM_TILES, TILES_PER_ROW,
-                                  long_segment_slab)
+from torch_chunk_fixtures import (BOUNDARY_OFFSET, NUM_TILES, TILES_PER_ROW,
+                                  long_segment_slab, shifted_slab)
 from torch_port_fixtures import (AB_CASES, ATOL, RTOL, assert_counts_close,
                                  camera_intrinsics, identity_pose,
                                  random_scene)
@@ -164,6 +164,48 @@ def test_split_tiles_match_plain(cuda, fmt, rgb_only):
     assert_counts_close(want[0][BC.GROW_NUM_PIXELS],
                         got[0][BC.GROW_NUM_PIXELS])
     np.testing.assert_allclose(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+def test_boundary_fixture_past_2_24_columns(cuda):
+    """The long-segment fixture at column offset 2**24 - 3 of a slab of
+    2**24 - 3 + 9,242 columns (its tiles straddle column 2**24): K2's int32
+    `last` is the offset-0 run's plus the offset exactly, and its other
+    rows are bitwise the offset-0 run's; K3's gradients at the shifted
+    columns and its magnitude image are bitwise the offset-0 run's (the
+    same keys, chunks and order), the other columns 0; and K3 matches its
+    plain version there at rtol 2e-3 / atol 1e-4, counts statistically."""
+    slabs, starts, ends = long_segment_slab(BC.CHUNK_KEYS)
+    kw = dict(num_tiles=NUM_TILES, tiles_per_row=TILES_PER_ROW)
+    base = (slabs["wide16"].to(cuda), starts.to(cuda), ends.to(cuda))
+    wide = shifted_slab(*base, BOUNDARY_OFFSET)
+    out0, last0 = BC.blend_forward_with_last(*base, **kw)
+    out1, last1 = BC.blend_forward_with_last(*wide, **kw)
+    assert torch.equal(last1, torch.where(last0 > 0, last0 + BOUNDARY_OFFSET,
+                                          last0))
+    assert bool((last1.long() > 2 ** 24 + 1).any())
+    # a float32 row would have moved some of them
+    assert bool((last1.float().long() != last1.long()).any())
+    rows = [r for r in range(8) if r != BC.OUT_LAST_EFF]
+    assert torch.equal(out1[:, rows], out0[:, rows])
+    rng = np.random.default_rng(3)
+    pixel_in = torch.zeros((NUM_TILES, 8, 256), device=cuda)
+    pixel_in[:, 0:3] = torch.as_tensor(
+        rng.normal(size=(NUM_TILES, 3, 256)).astype(np.float32), device=cuda)
+    pixel_in[:, 3:6] = out0[:, 0:3]
+    g0, m0 = BC.blend_backward(*base, pixel_in, **kw, last=last0)
+    g1, m1 = BC.blend_backward(*wide, pixel_in, **kw, last=last1)
+    assert torch.equal(g1[:, BOUNDARY_OFFSET:], g0)
+    assert torch.equal(m1, m0)
+    assert not bool(g1[:, :BOUNDARY_OFFSET].any())
+    ref = BC.blend_backward_torch(*wide, pixel_in, **kw, last=last1)
+    got = g1[:, BOUNDARY_OFFSET:].cpu().numpy()
+    want = ref[0][:, BOUNDARY_OFFSET:].cpu().numpy()
+    float_rows = [r for r in BC.GRAD_ROWS if r != BC.GROW_NUM_PIXELS]
+    np.testing.assert_allclose(got[float_rows], want[float_rows], rtol=RTOL,
+                               atol=ATOL)
+    assert_counts_close(want[BC.GROW_NUM_PIXELS], got[BC.GROW_NUM_PIXELS])
+    np.testing.assert_allclose(m1.cpu().numpy(), ref[1].cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_work_list_kernel_matches_plain(cuda):

@@ -45,6 +45,10 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.visualizer",
     "taichi_3d_gaussian_splatting_torch.parquet_to_ply",
     "taichi_3d_gaussian_splatting_torch.utils.profiling",
+    "taichi_3d_gaussian_splatting_torch.ci",
+    "taichi_3d_gaussian_splatting_torch.ci.run_experiment",
+    "taichi_3d_gaussian_splatting_torch.tools",
+    "taichi_3d_gaussian_splatting_torch.tools.prepare_kitti",
 ]
 
 
@@ -146,7 +150,7 @@ def test_card_fixtures_import_no_jax():
     """chip_smoke.py's helpers from tests/ run where JAX is absent."""
     code = ("import sys\n"
             "import torch_port_fixtures, torch_train_fixtures, "
-            "torch_chunk_fixtures\n"
+            "torch_chunk_fixtures, torch_capture_fixtures\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') "
             "or m.startswith('taichi_3d_gaussian_splatting_tpu'))\n"

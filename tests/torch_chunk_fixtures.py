@@ -11,7 +11,9 @@ whose opacity sets where pixels saturate: tiles 0-2 and 4 between ~0.97C
 and ~1.03C keys (so some pixels saturate on the first key of chunk 1, and
 some start chunk 1 with T just above 1e-4), tile 5 in its second chunk,
 tile 6 never, tile 7 in its first chunk (its later chunks start
-saturated).
+saturated). `shifted_slab` places such a slab at a column offset of a
+wider, otherwise zero slab: at `BOUNDARY_OFFSET` its tiles straddle column
+2**24, past which a float32 no longer holds every integer.
 """
 
 import numpy as np
@@ -51,6 +53,9 @@ OPS_CONTRIBUTING = {"blend_forward_rgb": 26, "blend_forward": 28,
                     "blend_backward": 68}
 # rasterize's settings in chip_smoke.py and blend_kernel_times.py
 CFG_MAIN = dict(near_plane=0.4, far_plane=1000.0, max_tiles_per_point=32)
+# the long-segment fixture's column offset in the boundary fixture: its
+# first tile spans columns 2**24 - 3 .. 2**24 + 2,307
+BOUNDARY_OFFSET = 2 ** 24 - 3
 
 
 def _tile_plan(c):
@@ -89,6 +94,17 @@ def long_segment_slab(chunk, seed=0):
             torch.tensor(ends, dtype=torch.int32))
 
 
+def shifted_slab(slab, tile_starts, tile_ends, offset):
+    """(slab, tile_starts, tile_ends) with `slab`'s columns at
+    [offset, offset + MK) of a slab of offset + MK columns, zero elsewhere
+    (no range points there), and the ranges shifted by `offset`; on the
+    slab's device."""
+    wide = torch.zeros((slab.shape[0], offset + slab.shape[1]),
+                       dtype=slab.dtype, device=slab.device)
+    wide[:, offset:] = slab
+    return wide, tile_starts + offset, tile_ends + offset
+
+
 def binned_inputs(pc, feats, cam, cfg_kwargs, device):
     """The blend kernels' inputs for a scene (pc, feats) at the identity
     pose: (the binning, {"wide16": slab, "packed8": slab})."""
@@ -125,9 +141,9 @@ def pair_counts(slab, tile_starts, tile_ends, *, num_tiles, tiles_per_row,
     saturating key (or the whole segment): "contributing" (blended),
     "skipped" (alpha < 1/255) and "saturating" (0 or 1), with "sat_pos"
     the saturating key's position in its tile's segment (-1 if none).
-    With `last` ((num_tiles, 256), the forward's OUT_LAST_EFF), also K3's
-    pairs, the keys below `last`: "k3_contributing" (not skipped) and
-    "k3_skipped".
+    With `last` ((num_tiles, 256), the forward's int32 `last` or its float
+    row OUT_LAST_EFF), also K3's pairs, the keys below `last`:
+    "k3_contributing" (not skipped) and "k3_skipped".
 
     `block` key positions at a time: T before key i is the product of the
     earlier non-skipped keys' (1 - min(alpha, 0.99)), so the pixel
@@ -144,6 +160,8 @@ def pair_counts(slab, tile_starts, tile_ends, *, num_tiles, tiles_per_row,
         names += ["k3_contributing", "k3_skipped"]
     counts = {k: torch.zeros_like(T, dtype=torch.long) for k in names}
     sat_pos = torch.full_like(counts["skipped"], -1)
+    if last is not None:
+        last = last.long()
     max_len = int(seg_len.max()) if num_tiles else 0
     for j0 in range(0, max_len, block):
         pos = j0 + torch.arange(block, device=device)
@@ -167,8 +185,7 @@ def pair_counts(slab, tile_starts, tile_ends, *, num_tiles, tiles_per_row,
         counts["skipped"] += (alive & ~live).sum(dim=1)
         counts["saturating"] += sat_here.sum(dim=1)
         if last is not None:
-            below = in_seg[:, :, None] & (
-                k[:, :, None].to(torch.float32) < last[:, None])
+            below = in_seg[:, :, None] & (k[:, :, None] < last[:, None])
             counts["k3_contributing"] += (below & live).sum(dim=1)
             counts["k3_skipped"] += (below & ~live).sum(dim=1)
         hit = sat_here.any(dim=1)
@@ -195,8 +212,8 @@ def work(name, slab, tile_starts, tile_ends, num_tiles, tiles_per_row,
         contributing = int(counts["k3_contributing"].sum())
         skipped = int(counts["k3_skipped"].sum())
         saturating = 0
-        # 9 slab rows and 7 pixel_in rows in; the gradient slab and the
-        # magnitude image out
+        # 9 slab rows, 6 pixel_in rows and the int32 `last` in; the
+        # gradient slab and the magnitude image out
         nbytes = 4 * (9 * mk + 7 * num_tiles * 256 + 16 * mk
                       + 8 * num_tiles * 256)
     else:
@@ -204,7 +221,9 @@ def work(name, slab, tile_starts, tile_ends, num_tiles, tiles_per_row,
         skipped = int(counts["skipped"].sum())
         saturating = int(counts["saturating"].sum())
         rows = 8 if name == "blend_forward_rgb" else 10
-        nbytes = 4 * (rows * mk + 8 * num_tiles * 256)
+        # the output tiles, and K2's int32 `last`
+        out_rows = 8 if name == "blend_forward_rgb" else 9
+        nbytes = 4 * (rows * mk + out_rows * num_tiles * 256)
     nbytes += 4 * 2 * num_tiles                              # tile ranges
     ops = (OPS_CONTRIBUTING[name] * contributing + OPS_SKIPPED * skipped
            + OPS_SATURATING * saturating)
