@@ -80,7 +80,15 @@ Phases (any failure exits non-zero; nothing is caught):
      gate again with --skip_training at 0.5 dB under the final val/psnr
      (exit 0) and 0.5 dB over it (exit 1); the render CLI renders one
      held-out view on the card; the KITTI capture converted by the port's
-     prepare_kitti and trained 3 steps on the card.
+     prepare_kitti and trained 3 steps on the card;
+ 10. the bench on the card: `python -m taichi_3d_gaussian_splatting_torch.
+     bench` in a subprocess on the 430k scene and the 1.03M heavy-tailed
+     scene with training, and on the 2.08M heavy-tailed scene without.
+     Each must exit 0 with a record of every key of bench.py's record plus
+     backend (torch-cuda), device and power_limit_w, a value > 0, the
+     dropped-work counters 0, its launch line on stderr showing K1 (and K2
+     and K3 where it trained), and a frame time (1000 / value) within 2x
+     of phase 4's for the same scene. The records are printed.
 
 The second-to-last line is a JSON object describing each kernel at the
 main path's shapes (430k scene; launches from phases 4 and 5): its time,
@@ -126,6 +134,24 @@ TRACE_TOLERANCE = 0.25
 GATE_ITERATIONS = 200
 GATE_FLOOR_PSNR = 14.0
 KITTI_STEPS = 3
+# phase 10: the bench runs (label of phase 4's scene, environment, trains)
+BENCH_RUNS = (("430k synthetic", {}, True),
+              ("1.03M heavy-tailed", {"BENCH_SCENE_KIND": "heavy",
+                                      "BENCH_POINTS": "1030000"}, True),
+              ("2.08M heavy-tailed", {"BENCH_SCENE_KIND": "heavy",
+                                      "BENCH_POINTS": "2080000",
+                                      "BENCH_TRAIN": "0"}, False))
+# bench.py's record (bench.py:278-307), then the port's three keys
+BENCH_RENDER_KEYS = ("metric", "value", "unit", "vs_baseline",
+                     "baseline_points", "slab_format", "key_overflow",
+                     "big_point_overflow", "tile_cap_overflow", "backend",
+                     "device", "power_limit_w")
+BENCH_TRAIN_KEYS = ("train_step_ms", "densify_ms", "train_step_amortized_ms",
+                    "train_iters_per_sec")
+# each bench run's launches with its defaults: K1 in 1 + 11 + 50 frames at
+# least, K2 and K3 in 4 + 20 steps at least
+BENCH_MIN_LAUNCHES = {"blend_forward_rgb": 61, "blend_forward": 24,
+                      "blend_backward": 24}
 
 
 def fail(msg):
@@ -869,6 +895,55 @@ def data_chain_phase(root, card, fail):
           f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
 
+def bench_phase(phase4_ms, fail):
+    """Phase 10: the port's bench in a subprocess per run of BENCH_RUNS
+    (the kernel library is already built), each checked against its
+    record's keys, counters and launch line, and its frame time against
+    phase 4's for the same scene."""
+    for label, knobs, trains in BENCH_RUNS:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("BENCH_")}
+        env.update(knobs)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "taichi_3d_gaussian_splatting_torch.bench"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"bench [{label}] exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        record = json.loads(proc.stdout.strip().splitlines()[-1])
+        keys = BENCH_RENDER_KEYS + (BENCH_TRAIN_KEYS if trains else ())
+        missing = [k for k in keys if k not in record]
+        if missing:
+            fail(f"bench [{label}]: record lacks {missing}: {record}")
+        if not record["value"] > 0 or record["backend"] != "torch-cuda":
+            fail(f"bench [{label}]: value or backend wrong: {record}")
+        if (record["key_overflow"], record["big_point_overflow"],
+                record["tile_cap_overflow"]) != (0, 0, 0):
+            fail(f"bench [{label}]: dropped-work counters not 0: {record}")
+        prefix = "kernel launches: "
+        launch_lines = [line for line in proc.stderr.splitlines()
+                        if line.startswith(prefix)]
+        if not launch_lines:
+            fail(f"bench [{label}]: no launch line on stderr")
+        launches = json.loads(launch_lines[-1][len(prefix):])
+        short = {k: launches[k] for k, v in BENCH_MIN_LAUNCHES.items()
+                 if (trains or k == "blend_forward_rgb") and launches[k] < v}
+        if short:
+            fail(f"bench [{label}]: too few launches {short} of {launches}")
+        frame_ms = 1000.0 / record["value"]
+        if not 0.5 * phase4_ms[label] <= frame_ms <= 2.0 * phase4_ms[label]:
+            fail(f"bench [{label}]: frame {frame_ms:.4f} ms, not within 2x of "
+                 f"phase 4's {phase4_ms[label]:.4f} ms")
+        print(f"bench [{label}]: {json.dumps(record)}", flush=True)
+        print(f"  launches {launches}; frame {frame_ms:.4f} ms against phase "
+              f"4's {phase4_ms[label]:.4f} ms; "
+              + "; ".join(line for line in proc.stderr.splitlines()
+                          if line.startswith("peak device memory"))
+              + f"; {seconds:.1f} s", flush=True)
+
+
 def main():
     import torch
 
@@ -1262,6 +1337,8 @@ def main():
                 totals += [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
         return dict(zip(names, (totals / frames).tolist())), image, binning
 
+    phase4_ms = {}
+
     def run_scene(label, pc, feats, count_launches):
         torch.cuda.reset_peak_memory_stats()
         scene = scene_on(pc, feats, cuda)
@@ -1271,6 +1348,7 @@ def main():
             render(scene, cfg_rgb)
         frame_ms = time_ms(lambda: render(scene, cfg_rgb), TIMED_FRAMES,
                            warmup=0)
+        phase4_ms[label] = frame_ms
         res = render(scene, cfg_rgb)
         full = render(scene, cfg_full)      # depth + count of the same view
         torch.cuda.synchronize()
@@ -1340,6 +1418,9 @@ def main():
         del scenes
         # ---- 9. the data-preparation chain and the experiment gate -------
         data_chain_phase(os.path.join(tmp, "chain"), card, fail)
+    # ---- 10. the bench on the card ------------------------------------
+    torch.cuda.empty_cache()   # the subprocesses need the card's memory
+    bench_phase(phase4_ms, fail)
     launches["blend_backward"] = train_launches["blend_backward"]
 
     # no PyTorch call computes the blend: library_ms is null

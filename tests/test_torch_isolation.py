@@ -49,6 +49,7 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.ci.run_experiment",
     "taichi_3d_gaussian_splatting_torch.tools",
     "taichi_3d_gaussian_splatting_torch.tools.prepare_kitti",
+    "taichi_3d_gaussian_splatting_torch.bench",
 ]
 
 
