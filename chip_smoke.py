@@ -23,7 +23,7 @@ Phases (any failure exits non-zero; nothing is caught):
      scene of bench.py at 976x544 (fx 581.7, near 0.4), frame time over 50
      frames after 10 warm-up frames, a per-stage breakdown, and one full
      render (depth and count) of the same view; the kernels' launch counts
-     are read over this phase only. Then the frame times of the 1.03M
+     are read over this phase only (P1 once per frame). Then the frame times of the 1.03M
      and 2.08M heavy-tailed scenes of benchmark/synthetic_checkpoint.py
      (kernel path only; no plain version at that size). Each scene's
      peak device memory and its slab columns are printed;
@@ -40,11 +40,22 @@ Phases (any failure exits non-zero; nothing is caught):
      offset exactly, K3's gradients at the shifted columns and its
      magnitude image bitwise the offset-0 run's, and K3 must match its
      plain version there;
+  3c. the projection kernels against their plain versions on the card
+     (projection_phase): P1 (csrc/projection_forward.cu) against
+     compute_point_attributes + blend_logw and P2 (csrc/
+     projection_backward.cu) against project_points_backward_torch on
+     seeded cotangents, on the 20k and 1.03M scenes, the 430k scene in the
+     trainer's 860,000 slots and a 32x32 case of two objects with an edit
+     transform and an SH band mask: P1's masks and non-finite count
+     identical, its columns and P2's gradients within the stated
+     tolerances, the same non-finite gradient rows; each kernel's and
+     plain version's device time and the bound;
   5. training path: a 4-view 976x544 dataset rendered by the port from the
      430k scene, an init parquet of its jittered positions, and the port's
      `GaussianPointCloudTrainer(...).train()` for 30 iterations with
      densify every 10 after a 10-step warm-up and one validation; the
-     kernels' launch counts are read over this phase only. Then the mean
+     kernels' launch counts are read over this phase only (P1 once per
+     frame, P2 once per step). Then the mean
      step time, a per-stage breakdown of a step and the densify time, and
      one 32x32 step on the card against the same step on the CPU;
   6. batch training: the same dataset with batch_size 4 under a one-rank
@@ -65,12 +76,13 @@ Phases (any failure exits non-zero; nothing is caught):
      share, kernel launches per step, the top-10 kernels, the forward
      blend's (work list, transmittance, blend) and K3's time per step.
      It fails without CUDA kernel events, without blend_forward_kernel
-     and blend_backward_kernel, or when K2's or K3's time per launch in
+     and blend_backward_kernel, without projection_forward_kernel and
+     projection_backward_kernel, or when K2's or K3's time per launch in
      the trace is more than 25% from their CUDA-event times on the same
      inputs (each training view of the final state); (b) 10 frames of
      the 430k `rasterize(rgb_only=True)` under torch.profiler, the same
-     summary per frame, K1 held at 25% against its phase-3 time (the same
-     inputs);
+     summary per frame (P1 in it), K1 held at 25% against its phase-3
+     time (the same inputs);
   9. the data-preparation chain and the experiment gate on the card: the
      COLMAP binary capture of tests/test_torch_colmap_e2e.py, its images
      rendered on the card, converted by tools/prepare_colmap.py; the
@@ -86,15 +98,20 @@ Phases (any failure exits non-zero; nothing is caught):
      scene with training, and on the 2.08M heavy-tailed scene without.
      Each must exit 0 with a record of every key of bench.py's record plus
      backend (torch-cuda), device and power_limit_w, a value > 0, the
-     dropped-work counters 0, its launch line on stderr showing K1 (and K2
-     and K3 where it trained), and a frame time (1000 / value) within 2x
+     dropped-work counters 0, its launch line on stderr showing K1 and P1
+     (and K2, K3 and P2 where it trained), and a frame time (1000 / value) within 2x
      of phase 4's for the same scene. The records are printed.
+
+Every phase that renders or trains checks that P1 launched once per blend
+forward (K1 or K2) and P2 once per K3 launch.
 
 The second-to-last line is a JSON object describing each kernel at the
 main path's shapes (430k scene; launches from phases 4 and 5): its time,
 its plain version's, its bound and what sets it (tests/
-torch_chunk_fixtures.py work), the pairs it evaluates, and library_ms null
-(no PyTorch call computes the blend). The last line is {"ok": true, "device": {...}}.
+torch_chunk_fixtures.py work for the blends, the bytes and operations per
+point of PROJECTION_BYTES / PROJECTION_OPS for P1 and P2 at the trainer's
+860,000 slots), the pairs a blend evaluates, and library_ms null (no
+PyTorch call computes the blend or the projection). The last line is {"ok": true, "device": {...}}.
 Needs no network and imports no JAX.
 """
 
@@ -148,15 +165,70 @@ BENCH_RENDER_KEYS = ("metric", "value", "unit", "vs_baseline",
                      "device", "power_limit_w")
 BENCH_TRAIN_KEYS = ("train_step_ms", "densify_ms", "train_step_amortized_ms",
                     "train_iters_per_sec")
-# each bench run's launches with its defaults: K1 in 1 + 11 + 50 frames at
-# least, K2 and K3 in 4 + 20 steps at least
+# each bench run's launches with its defaults: K1 and P1 in 1 + 11 + 50
+# frames at least, K2, K3 and P2 in 4 + 20 steps at least
 BENCH_MIN_LAUNCHES = {"blend_forward_rgb": 61, "blend_forward": 24,
-                      "blend_backward": 24}
+                      "blend_backward": 24, "project_forward": 61,
+                      "project_backward": 24}
+BENCH_RENDER_KERNELS = ("blend_forward_rgb", "project_forward")
+# phase 3c: the projection kernels P1 and P2. The JAX package has no Pallas
+# kernel there: it jits compute_point_attributes and takes its jax.vjp
+# (XLA fuses both), which is what "replaces" names.
+PROJECTION_SOURCES = {
+    "project_forward":
+        "taichi_3d_gaussian_splatting_torch/csrc/projection_forward.cu",
+    "project_backward":
+        "taichi_3d_gaussian_splatting_torch/csrc/projection_backward.cu"}
+PROJECTION_REPLACES = {
+    "project_forward": "taichi_3d_gaussian_splatting_tpu/ops/projection.py:98",
+    "project_backward":
+        "taichi_3d_gaussian_splatting_tpu/ops/rasterizer.py:519"}
+# bytes a point must move (each input read once, each output written once;
+# the object id's 4 more when K > 1) and float operations a point takes,
+# counted from the sources: P1 reads the position, the 56 features and the
+# invalid flag and writes 15 float columns and 2 mask bytes; P2 reads the
+# position, the features and 9 cotangents and writes 3 + 56 gradients and
+# recomputes P1's ~420 operations before its own ~500
+PROJECTION_BYTES = {"project_forward": 12 + 224 + 1 + 15 * 4 + 2,
+                    "project_backward": 12 + 224 + 9 * 4 + 12 + 224}
+PROJECTION_OPS = {"project_forward": 420, "project_backward": 920}
+PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 67e12
+# P1 against its plain version on the card: the same float32 operations in
+# the same order, so bitwise but where a library call rounds otherwise; P2
+# against its plain version, per gradient column (scale = its largest
+# |value|): the same formulas, tolerance of the CPU tests against JAX
+P1_RTOL, P1_ATOL = 1e-5, 1e-6
+P2_RTOL, P2_ATOL = 1e-4, 1e-5
 
 
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", flush=True)
     sys.exit(1)
+
+
+def reset_launch_counts():
+    """Every kernel wrapper's launch count to 0 (blend and projection)."""
+    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+    from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
+    BC.reset_launch_counts()
+    PC.reset_launch_counts()
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, in one dict."""
+    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+    from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
+    return {**BC.launch_counts, **PC.launch_counts}
+
+
+def check_projection_launches(launches, label, fail):
+    """One P1 launch per blend forward (K1 or K2: one per frame) and one P2
+    launch per blend backward (K3: one per step or view)."""
+    frames = launches["blend_forward_rgb"] + launches["blend_forward"]
+    if (launches["project_forward"] != frames
+            or launches["project_backward"] != launches["blend_backward"]):
+        fail(f"{label}: the projection kernels did not launch once per frame "
+             f"and step: {launches}")
 
 
 def bench_scene(n, seed=0):
@@ -352,17 +424,18 @@ def train_phase(paths, root, card, fail):
           f"{time.perf_counter() - t0:.1f} s: {trainer.scene.capacity} "
           f"slots, {trainer.scene.num_valid_points()} valid", flush=True)
 
-    BC.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = dict(BC.launch_counts)
+    launches = launch_counts()
     print(f"kernel launches during the {TRAIN_ITERATIONS}-iteration "
           f"training run: {launches}", flush=True)
     if (launches["blend_forward"] < TRAIN_ITERATIONS
             or launches["blend_backward"] < TRAIN_ITERATIONS):
         fail(f"training did not launch K2 and K3 once per step: {launches}")
+    check_projection_launches(launches, "training", fail)
 
     losses, psnr = check_run(logs, TRAIN_ITERATIONS, fail)
     print(f"training [{W}x{H}, 430k synthetic, 4 views]: "
@@ -439,18 +512,19 @@ def batch_train_phase(paths, root, card, fail):
               f"{ctrl.num_iterations_warm_up}, densify every "
               f"{ctrl.num_iterations_densify}, feature lr "
               f"{trainer.config.feature_learning_rate:.6g}", flush=True)
-        BC.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         trainer.train()
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = dict(BC.launch_counts)
+        launches = launch_counts()
         print(f"kernel launches during the {BATCH_ITERATIONS}-iteration "
               f"batch run: {launches}", flush=True)
         views = BATCH_SIZE * BATCH_ITERATIONS
         if min(launches["blend_forward"], launches["blend_backward"]) < views:
             fail(f"batch training did not launch K2 and K3 once per view "
                  f"({views} views): {launches}")
+        check_projection_launches(launches, "batch training", fail)
         losses, psnr = check_run(logs, BATCH_ITERATIONS, fail)
         print("batch training losses: " + ", ".join(f"{x:.5f}"
                                                     for x in losses),
@@ -539,7 +613,7 @@ def viewer_phase(root, pc, feats, card, fail):
     print(f"viewer ready in {time.perf_counter() - t0:.2f} s: "
           f"{state.scene.capacity} points, {state.num_objects} objects",
           flush=True)
-    BC.reset_launch_counts()
+    reset_launch_counts()
     frames = {}
     for key in ("", "w", "1", "d", "h"):
         if key:
@@ -549,9 +623,10 @@ def viewer_phase(root, pc, feats, card, fail):
         if img.size != (W, H):
             fail(f"viewer PNG after {key!r} is {img.size}")
         frames[key] = np.asarray(img, np.float32)
-    launches = dict(BC.launch_counts)
+    launches = launch_counts()
     if launches["blend_forward_rgb"] < len(frames):
         fail(f"the viewer's frames did not launch K1: {launches}")
+    check_projection_launches(launches, "viewer", fail)
     if np.array_equal(frames["d"], frames["h"]) or not frames["h"].any():
         fail("hiding object 1 did not change the frame, or blanked it")
     for _ in range(3):
@@ -568,20 +643,26 @@ def viewer_phase(root, pc, feats, card, fail):
     png_ms = (time.perf_counter() - t0) * 1000.0 / 5
     print(f"viewer [{W}x{H}, 430k synthetic in 2 objects, object 1 hidden]: "
           f"{frame_ms:.4f} ms/frame over {VIEWER_FRAMES} frames, "
-          f"{png_ms:.4f} ms per PNG frame; K1 launches over 5 frames "
-          f"{launches['blend_forward_rgb']} ({card})", flush=True)
+          f"{png_ms:.4f} ms per PNG frame; K1 and P1 launches over 5 "
+          f"frames {launches['blend_forward_rgb']}, "
+          f"{launches['project_forward']} ({card})", flush=True)
 
 
 def check_trace(label, summary, event_ms, unit, fail):
     """Print a trace summary; fail without kernel events, without a blend
     family of `event_ms` ({"forward" / "backward": CUDA-event ms per
-    launch on the same inputs}), or when a family's time per launch in the
+    launch on the same inputs}) or the projection kernel of the same
+    family, or when a blend family's time per launch in the
     trace is more than TRACE_TOLERANCE from its CUDA-event time."""
     from taichi_3d_gaussian_splatting_torch.utils.profiling import (
         format_summary)
     print(f"trace [{label}]: " + format_summary(summary, unit), flush=True)
     if summary["kernels"] == 0:
         fail(f"{label}: the trace holds no CUDA kernel events")
+    for fam in event_ms:
+        if summary["projection"][fam]["launches_per_range"] == 0:
+            fail(f"{label}: projection_{fam}_kernel is missing from the "
+                 f"trace")
     for fam, want in event_ms.items():
         entry = summary["blend"][fam]
         if entry["launches_per_range"] == 0:
@@ -771,6 +852,185 @@ def boundary_phase(cam, slab, binning, offset, fail):
         fail("boundary fixture: no `last` that a float32 row would round")
 
 
+def projection_bound(name, n, num_objects):
+    """(bound ms, "bytes" or "operations") of kernel `name` on n points."""
+    per_point = PROJECTION_BYTES[name] + (4 if num_objects > 1 else 0)
+    t_bytes = n * per_point / PEAK_BYTES_PER_S * 1e3
+    t_ops = n * PROJECTION_OPS[name] / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def projection_cases(scenes, cam):
+    """Phase 3c's inputs: (label, camera, pc, feats, invalid, obj, q, t,
+    color_sh_mask, object_edit) as numpy arrays: the 20k and 1.03M scenes
+    at the render's identity pose, the 430k scene in the trainer's 860,000
+    slots (padding as models/scene.py pads: zeros, identity quaternion,
+    invalid) at the first training view's pose, and a 32x32 case of two
+    objects with an edit transform and the SH mask of band 1."""
+    import torch_port_fixtures as fx
+    from taichi_3d_gaussian_splatting_torch.ops.sh import sh_band_mask
+    q0, t0 = fx.identity_pose()
+    cases = []
+    for label in ("mid 20k", "1.03M heavy-tailed"):
+        pc, feats = scenes[label]
+        n = pc.shape[0]
+        cases.append((label, cam, pc, feats, np.zeros(n, np.int8),
+                      np.zeros(n, np.int32), q0, t0, None, None))
+    pc, feats = scenes["430k synthetic"]
+    n = pc.shape[0]
+    pad_feats = np.zeros((n, 56), np.float32)
+    pad_feats[:, 3] = 1.0
+    cases.insert(1, ("430k synthetic, 860,000 slots", cam,
+                     np.concatenate([pc, np.zeros_like(pc)]),
+                     np.concatenate([feats, pad_feats]),
+                     np.concatenate([np.zeros(n, np.int8),
+                                     np.ones(n, np.int8)]),
+                     np.zeros(2 * n, np.int32), q0,
+                     np.array([[-0.05, 0.0, 0.0]], np.float32), None, None))
+    rng = np.random.default_rng(4)
+    pc, feats = fx.random_scene(60, seed=1)
+    q = rng.normal(size=(2, 4)).astype(np.float32) * 0.1
+    q[:, 3] = 1.0
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qe = rng.normal(size=(2, 4)).astype(np.float32) * 0.2
+    qe[:, 3] = 1.0
+    qe /= np.linalg.norm(qe, axis=1, keepdims=True)
+    edit = (qe, rng.uniform(0.7, 1.3, (2, 3)).astype(np.float32),
+            (rng.normal(size=(2, 3)) * 0.1).astype(np.float32))
+    small = type(cam)(fx.camera_intrinsics(), 32, 32)
+    cases.append(("K=2 object_edit + SH band 1, 32x32", small, pc, feats,
+                  np.zeros(60, np.int8), rng.integers(0, 2, 60).astype(
+                      np.int32), q, (rng.normal(size=(2, 3)) * 0.1).astype(
+                          np.float32), sh_band_mask(1).numpy(), edit))
+    return cases
+
+
+def projection_phase(scenes, cam, near, far, card, fail):
+    """Phase 3c: P1 and P2 against their plain versions on the card, on
+    projection_cases. P1: in_frustum, emit and the non-finite count
+    identical (else each differing point's margins are printed and the
+    phase fails), the float columns at P1_RTOL / P1_ATOL; P2: the same
+    rows non-finite, the gradients at P2_RTOL / P2_ATOL per column. Prints
+    each kernel's and plain version's device ms and the bound. Returns
+    ({name: ms}, {name: plain ms}, {name: (bound ms, bound_by)},
+    {name: max |kernel - plain|}) at the 860,000-slot case."""
+    import torch
+    from taichi_3d_gaussian_splatting_torch.ops import projection as P
+    from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
+    from taichi_3d_gaussian_splatting_torch.ops.gaussian import (
+        ALPHA_SKIP_THRESHOLD)
+    from taichi_3d_gaussian_splatting_torch.ops.transforms import (
+        inverse_SE3_qt)
+    cuda = torch.device("cuda")
+    ms, plain, bounds, max_err = {}, {}, {}, {}
+    for case in projection_cases(scenes, cam):
+        label, case_cam, *arrays, mask, edit = case
+        pc, feats, invalid, obj, q, t = (torch.as_tensor(x, device=cuda)
+                                         for x in arrays)
+        n, k = pc.shape[0], q.shape[0]
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=cuda)
+        if edit is not None:
+            edit = tuple(torch.as_tensor(x, device=cuda) for x in edit)
+        q_cam, t_cam = inverse_SE3_qt(q, t)
+        inputs = PC.projection_inputs(q_cam, t_cam, t, case_cam, near, far,
+                                      mask, edit)
+        with torch.no_grad():
+            def plain_forward():
+                a = P.compute_point_attributes(
+                    pc, feats, invalid, obj, q_cam, t_cam, t, case_cam, near,
+                    far, mask, object_edit=edit)
+                return a, P.blend_logw(a.rescale, a.alpha_after_activation)
+            got, got_logw = PC.project_forward(pc, feats, invalid, obj,
+                                               inputs)
+            want, want_logw = plain_forward()
+        torch.cuda.synchronize()
+        differ = {}
+        for field in ("in_frustum", "emit"):
+            bad = (getattr(got, field) != getattr(want, field)).nonzero()
+            differ[field] = bad[:, 0].tolist()
+        if differ["in_frustum"] or differ["emit"] or int(
+                got.nonfinite_points) != int(want.nonfinite_points):
+            zc, u, v = want.depth, want.u, want.v
+            peak = want.rescale * want.alpha_after_activation
+            for field, rows in differ.items():
+                for i in rows[:20]:
+                    print(f"  {label} {field} differs at {i}: zc - near "
+                          f"{float(zc[i] - near):.3g}, u {float(u[i]):.9g}, "
+                          f"v {float(v[i]):.9g}, peak - 1/255 "
+                          f"{float(peak[i] - ALPHA_SKIP_THRESHOLD):.3g}",
+                          flush=True)
+            fail(f"{label}: P1's masks or count differ from the plain "
+                 f"version's: in_frustum {len(differ['in_frustum'])}, emit "
+                 f"{len(differ['emit'])}, nonfinite "
+                 f"{int(got.nonfinite_points)} vs "
+                 f"{int(want.nonfinite_points)}")
+        f_err, bitwise = 0.0, []
+        for field in PC.FLOAT_ROWS:
+            a = (got_logw if field == "logw" else getattr(got, field))
+            b = (want_logw if field == "logw" else getattr(want, field))
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            np.testing.assert_allclose(a, b, rtol=P1_RTOL, atol=P1_ATOL,
+                                       err_msg=f"{label} P1 {field}")
+            ok = np.isfinite(b)
+            f_err = max(f_err, float(np.abs(a[ok] - b[ok]).max(initial=0)))
+            if not np.array_equal(a, b, equal_nan=True):
+                bitwise.append(field)
+        rng = np.random.default_rng(9)
+        cot = torch.as_tensor(rng.normal(size=(9, n)).astype(np.float32),
+                              device=cuda)
+        g = PC.project_backward(pc, feats, obj, inputs, cot)
+        r = P.project_points_backward_torch(pc, feats, obj, q_cam, t_cam, t,
+                                            case_cam, near, cot, mask,
+                                            object_edit=edit)
+        g = [x.cpu().numpy() for x in g]
+        r = [x.cpu().numpy() for x in r]
+        b_err, rows_bad = 0.0, 0
+        for what, a, b in zip(("positions", "features"), g, r):
+            finite = np.isfinite(b).all(1)
+            if not np.array_equal(np.isfinite(a).all(1), finite):
+                fail(f"{label}: P2's non-finite {what} rows differ from the "
+                     f"plain version's")
+            rows_bad = max(rows_bad, int((~finite).sum()))
+            for col in range(b.shape[1]):
+                scale = float(np.abs(b[finite, col]).max(initial=0))
+                np.testing.assert_allclose(
+                    a[finite, col], b[finite, col], rtol=P2_RTOL,
+                    atol=P2_ATOL * scale,
+                    err_msg=f"{label} P2 {what} column {col}")
+            b_err = max(b_err, float(np.abs(a[finite] - b[finite]).max(
+                initial=0)))
+        print(f"projection kernels vs plain [{label}, {n} points, K={k}]: "
+              f"masks and nonfinite count ({int(got.nonfinite_points)}) "
+              f"identical, {int(got.emit.sum())} emit; P1 max |d| "
+              f"{f_err:.3g}, columns not bitwise: {bitwise or 'none'}; P2 "
+              f"max |d| {b_err:.3g}, {rows_bad} non-finite rows in both",
+              flush=True)
+        if n < 10000:
+            continue
+        k1 = time_ms(lambda: PC.project_forward(pc, feats, invalid, obj,
+                                                inputs), 20)
+        with torch.no_grad():
+            p1 = time_ms(plain_forward, 3, warmup=1)
+        k2 = time_ms(lambda: PC.project_backward(pc, feats, obj, inputs, cot),
+                     20)
+        p2 = time_ms(lambda: P.project_points_backward_torch(
+            pc, feats, obj, q_cam, t_cam, t, case_cam, near, cot, mask,
+            object_edit=edit), 3, warmup=1)
+        for name, k_ms, p_ms, err in (("project_forward", k1, p1, f_err),
+                                      ("project_backward", k2, p2, b_err)):
+            bound = projection_bound(name, n, k)
+            print(f"{label} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                  f"ms, bound {bound[0]:.4f} ms by {bound[1]} "
+                  f"({100.0 * bound[0] / k_ms:.1f}% of it) ({card})",
+                  flush=True)
+            if label.endswith("860,000 slots"):   # the trainer's shapes
+                ms[name], plain[name], bounds[name] = k_ms, p_ms, bound
+                max_err[name] = err
+        del pc, feats, g, r
+    return ms, plain, bounds, max_err
+
+
 def data_chain_phase(root, card, fail):
     """Phase 9: COLMAP capture -> tools/prepare_colmap.py -> the port's
     experiment gate (train CLI on the card) -> the gate on the written
@@ -839,15 +1099,17 @@ def data_chain_phase(root, card, fail):
     one_view = os.path.join(root, "one_view.json")
     with open(one_view, "w") as f:
         json.dump(view, f)
-    BC.reset_launch_counts()
+    reset_launch_counts()
     render_cli.main(["--parquet_path", os.path.join(logs, "best_scene.parquet"),
                      "--dataset_json_path", one_view, "--output_prefix",
                      os.path.join(root, "frame"), "--width", str(COLMAP_W),
                      "--height", str(COLMAP_H), "--fx", "50.0", "--fy", "52.0",
                      "--device", "cuda"])
     torch.cuda.synchronize()
-    if BC.launch_counts["blend_forward_rgb"] != 1:
-        fail(f"the render CLI did not launch K1 once: {BC.launch_counts}")
+    if (BC.launch_counts["blend_forward_rgb"], launch_counts()[
+            "project_forward"]) != (1, 1):
+        fail(f"the render CLI did not launch K1 and P1 once: "
+             f"{launch_counts()}")
     frame = np.asarray(PIL.Image.open(os.path.join(root, "frame_00000.png")),
                        np.float64)
     truth = np.asarray(PIL.Image.open(view[0]["image_path"]),
@@ -869,13 +1131,13 @@ def data_chain_phase(root, card, fail):
         pointcloud_parquet_path=os.path.join(
             out, "point_cloud_downsample.parquet"),
         num_iterations=KITTI_STEPS, val_interval=10 ** 6)
-    BC.reset_launch_counts()
+    reset_launch_counts()
     trainer = GaussianPointCloudTrainer(tconfig.from_dict(TrainConfig, d),
                                         device="cuda")
     trainer.train()
     trainer.logger.close()
     torch.cuda.synchronize()
-    launches = dict(BC.launch_counts)
+    launches = launch_counts()
     with open(os.path.join(d["summary_writer_log_dir"], "metrics.jsonl")) as f:
         kitti_losses = [r["train/loss"] for r in map(json.loads, f)
                         if "train/loss" in r]
@@ -884,6 +1146,7 @@ def data_chain_phase(root, card, fail):
     if min(launches["blend_forward"], launches["blend_backward"]) < \
             KITTI_STEPS:
         fail(f"KITTI training did not launch K2 and K3 each step: {launches}")
+    check_projection_launches(launches, "KITTI training", fail)
     print(f"data chain [COLMAP binary {COLMAP_W}x{COLMAP_H}, 10 views -> "
           f"prepare_colmap -> gate]: {GATE_ITERATIONS} iterations through the "
           f"train CLI in {gate_s:.1f} s, val/psnr first {val_psnr[0]:.4f} -> "
@@ -929,7 +1192,8 @@ def bench_phase(phase4_ms, fail):
             fail(f"bench [{label}]: no launch line on stderr")
         launches = json.loads(launch_lines[-1][len(prefix):])
         short = {k: launches[k] for k, v in BENCH_MIN_LAUNCHES.items()
-                 if (trains or k == "blend_forward_rgb") and launches[k] < v}
+                 if (trains or k in BENCH_RENDER_KERNELS)
+                 and launches[k] < v}
         if short:
             fail(f"bench [{label}]: too few launches {short} of {launches}")
         frame_ms = 1000.0 / record["value"]
@@ -976,11 +1240,10 @@ def main():
         GaussianPointCloudScene)
     from taichi_3d_gaussian_splatting_torch.ops import _build
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
-    from taichi_3d_gaussian_splatting_torch.ops.projection import (
-        compute_point_attributes)
+    from taichi_3d_gaussian_splatting_torch.ops.projection_cuda import (
+        project_points)
     from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
-        RasterizerConfig, _blend_inputs_from_attrs, _result_from_tile_out,
-        rasterize)
+        RasterizerConfig, _result_from_tile_out, rasterize)
     from taichi_3d_gaussian_splatting_torch.ops.tiling import (
         bin_points_to_tiles, blend_slab)
     from taichi_3d_gaussian_splatting_torch.ops.transforms import (
@@ -1291,6 +1554,11 @@ def main():
             bounds["blend_backward"] = wk
         del binning, args
 
+    # ---- 3c. projection kernels vs plain versions on the card ----------
+    p_ms, p_plain, p_bounds, p_err = projection_phase(
+        scenes, cam, cfg_main["near_plane"], cfg_main["far_plane"], card,
+        fail)
+
     # ---- 4. main path ---------------------------------------------------
     cfg_rgb = RasterizerConfig(**cfg_main, rgb_only=True)
     cfg_full = RasterizerConfig(**cfg_main, rgb_only=False)
@@ -1311,10 +1579,10 @@ def main():
             with torch.no_grad():
                 ev[0].record()
                 q_cam, t_cam = inverse_SE3_qt(q, t)
-                attrs = compute_point_attributes(
+                attrs, cols = project_points(
                     *scene, q_cam, t_cam, t, cam, cfg_rgb.near_plane,
                     cfg_rgb.far_plane)
-                cols, depth = _blend_inputs_from_attrs(attrs)
+                depth = attrs.depth
                 ev[1].record()
                 binning = bin_points_to_tiles(
                     attrs.u, attrs.v, attrs.depth, attrs.radius_x,
@@ -1343,7 +1611,7 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         scene = scene_on(pc, feats, cuda)
         if count_launches:
-            BC.reset_launch_counts()
+            reset_launch_counts()
         for _ in range(WARMUP_FRAMES):
             render(scene, cfg_rgb)
         frame_ms = time_ms(lambda: render(scene, cfg_rgb), TIMED_FRAMES,
@@ -1352,7 +1620,7 @@ def main():
         res = render(scene, cfg_rgb)
         full = render(scene, cfg_full)      # depth + count of the same view
         torch.cuda.synchronize()
-        launches = dict(BC.launch_counts)
+        launches = launch_counts()
         img = res.image
         alpha = res.aux.pixel_accumulated_alpha
         if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()):
@@ -1392,6 +1660,7 @@ def main():
           flush=True)
     if min(launches["blend_forward_rgb"], launches["blend_forward"]) < 1:
         fail(f"a kernel of the path was never launched: {launches}")
+    check_projection_launches(launches, "the 430k main path", fail)
     run_scene("1.03M heavy-tailed", *scenes["1.03M heavy-tailed"], False)
     run_scene("2.08M heavy-tailed", *make_heavy_tailed_checkpoint(
         2080000, np.random.default_rng(0)), False)
@@ -1422,8 +1691,10 @@ def main():
     torch.cuda.empty_cache()   # the subprocesses need the card's memory
     bench_phase(phase4_ms, fail)
     launches["blend_backward"] = train_launches["blend_backward"]
+    launches["project_backward"] = train_launches["project_backward"]
 
-    # no PyTorch call computes the blend: library_ms is null
+    # no PyTorch call computes the blend or the projection: library_ms is
+    # null
     kernels = [{"name": name, "route": "cuda",
                 "source": (BACKWARD_SOURCE if name == "blend_backward"
                            else KERNEL_SOURCE),
@@ -1436,6 +1707,14 @@ def main():
                 "pairs": bounds[name]["pairs"]}
                for name in ("blend_forward_rgb", "blend_forward",
                             "blend_backward")]
+    kernels += [{"name": name, "route": "cuda",
+                 "source": PROJECTION_SOURCES[name],
+                 "replaces": PROJECTION_REPLACES[name],
+                 "launches": launches[name], "max_abs_err": p_err[name],
+                 "ms": p_ms[name], "plain_ms": p_plain[name],
+                 "bound_ms": p_bounds[name][0], "bound_by": p_bounds[name][1],
+                 "library_ms": None}
+                for name in ("project_forward", "project_backward")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

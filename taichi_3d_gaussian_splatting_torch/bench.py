@@ -35,8 +35,8 @@ Prints one JSON line, the last of standard output, with `bench.py`'s keys
 `slab_format`, the three dropped-work counters, always 0 here, and with
 training `train_step_ms`, `densify_ms`, `train_step_amortized_ms`,
 `train_iters_per_sec`) plus `backend`, `device` and `power_limit_w`.
-Standard error carries the peak device memory and the blend kernels'
-launch counts over the run. Without a CUDA card (and no `--device cpu`),
+Standard error carries the peak device memory and the blend and
+projection kernels' launch counts over the run. Without a CUDA card (and no `--device cpu`),
 or when the kernels do not build, it prints `bench.py`'s error record
 (`value` 0.0 and an `error`) and exits 2; there is no CPU fallback. When
 the training measurement fails it prints the render record with a
@@ -61,6 +61,7 @@ from .camera import CameraInfo
 from .models.scene import GaussianPointCloudScene
 from .ops import _build
 from .ops import blend_cuda as BC
+from .ops import projection_cuda as PC
 from .ops.rasterizer import (RasterizerConfig, _resolve_slab_format,
                              rasterize, rasterize_with_vjp)
 from .ops.sh import feature_sh_band_mask
@@ -389,6 +390,7 @@ def main(argv=None):
                            slab_format=os.environ.get("BENCH_SLAB_FORMAT",
                                                       "auto"))
     BC.reset_launch_counts()
+    PC.reset_launch_counts()
     frame_ms, aux = measure_render(pc, feats, cam, cfg, device,
                                    int(os.environ.get("BENCH_ITERS", "50")))
     _peak_memory(device, "scene and render")
@@ -408,7 +410,8 @@ def main(argv=None):
                           train_ms)
     if train_error is not None:
         record["train_error"] = train_error
-    print(f"kernel launches: {json.dumps(BC.launch_counts)}",
+    print(f"kernel launches: "
+          f"{json.dumps({**BC.launch_counts, **PC.launch_counts})}",
           file=sys.stderr, flush=True)
     print(json.dumps(record), flush=True)
     if train_error is not None:

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``csrc/*.cu`` have a plain C interface. At first use each
-is compiled by its own ``nvcc`` for sm_90a, all at once, and the objects
+is compiled by its own ``nvcc`` for sm_90a (with ``SOURCE_FLAGS`` added for
+the sources listed there), all at once, and the objects
 are linked into one shared library whose file name carries the hash of the
 sources (headers included) and flags, under ``csrc/build/`` (listed in
 ``.gitignore``), and loaded with ``ctypes``. A second call in the same
@@ -22,6 +23,11 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of single sources: the projection kernels round every product and
+# sum on its own, as the plain version's torch ops do (no contraction into
+# fused multiply-adds), so that their masks match it exactly
+SOURCE_FLAGS = {"projection_forward.cu": ("-fmad=false",),
+                "projection_backward.cu": ("-fmad=false",)}
 
 _library = None
 # what ptxas reported (registers, shared memory, spills) for the last build
@@ -63,6 +69,20 @@ def _declare(lib):
     # mk, tiles_per_row, stream
     fn.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, p, i, i, p]
     fn.restype = i
+    f = ctypes.c_float
+    fn = lib.t3dgs_project_forward
+    # pointcloud, feats, invalid, object_id, n, table, edit, num_objects,
+    # intrinsics, sh_mask, near, far, u_lo, u_hi, v_lo, v_hi, out, masks,
+    # nonfinite, stream
+    fn.argtypes = [p, p, p, p, i, p, p, i, p, p, f, f, f, f, f, f, p, p, p,
+                   p]
+    fn.restype = i
+    fn = lib.t3dgs_project_backward
+    # pointcloud, feats, object_id, n, table, edit, num_objects, intrinsics,
+    # sh_mask, near, cot, cot_stride, grad_pc, grad_feats, stream
+    fn.argtypes = [p, p, p, i, p, p, i, p, p, f, p, ctypes.c_longlong, p, p,
+                   p]
+    fn.restype = i
     return lib
 
 
@@ -73,7 +93,8 @@ def _compile(nvcc, sources, lib_path):
         jobs = []
         for src in sources:
             obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c",
+                   "-o", obj, str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -105,7 +126,8 @@ def load_library():
     if _library is not None:
         return _library
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(repr((NVCC_FLAGS, sorted(SOURCE_FLAGS.items())))
+                            .encode())
     for src in sorted(sources + list(CSRC_DIR.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())

@@ -2,7 +2,9 @@
 
 Steps of `rasterize`:
   1. the camera inverse (ops/transforms.py inverse_SE3_qt);
-  2. per-point projection, SH colour and culling (ops/projection.py);
+  2. per-point projection, SH colour and culling (ops/projection_cuda.py:
+     the CUDA kernel on the card, its plain version ops/projection.py on
+     the CPU);
   3. tile binning, the depth sort and the blend slab (ops/tiling.py);
   4. the per-tile blend (ops/blend_cuda.py: the CUDA kernel on the card,
      its plain version on the CPU);
@@ -12,8 +14,9 @@ Differentiation (the JAX package's contract): `rasterize` with
 `rgb_only=False` is differentiable with respect to the point positions and
 all 56 features through a `torch.autograd.Function` around the blend, whose
 backward is the backward kernel (ops/blend_cuda.py blend_backward) plus the
-per-point routing `_route_to_points`; torch autograd carries the
-gradient through the projection. Only the colour rows of the blend carry a
+per-point routing `_route_to_points`, and the projection's autograd node
+(ops/projection_cuda.py ProjectPoints), whose backward is the projection's
+backward kernel. Only the colour rows of the blend carry a
 gradient: depth, count and the accumulated alpha come back detached, and
 the density rescale is a constant. The rgb_only render is inference only:
 its image carries no gradient. `rasterize_with_vjp` returns the forward
@@ -30,7 +33,7 @@ import torch
 
 from ..camera import CameraInfo, TILE_WIDTH, TILE_HEIGHT
 from . import blend_cuda as BC
-from .projection import compute_point_attributes
+from .projection_cuda import project_points
 from .tiling import bin_points_to_tiles
 from .transforms import inverse_SE3_qt
 
@@ -148,18 +151,6 @@ def _resolve_slab_format(config: RasterizerConfig) -> str:
     return config.slab_format
 
 
-def _blend_inputs_from_attrs(attrs):
-    """The blend's input columns: (u, v, a, b, c, logw, r, g, b) and depth,
-    with logw = log(rescale) + log(sigmoid(alpha)), rescale without
-    gradient."""
-    rescale_log = torch.log(torch.clamp(attrs.rescale, min=1e-30)).detach()
-    logw = rescale_log + torch.log(
-        torch.clamp(attrs.alpha_after_activation, min=1e-30))
-    cols = (attrs.u, attrs.v, attrs.conic_a, attrs.conic_b, attrs.conic_c,
-            logw, attrs.color_r, attrs.color_g, attrs.color_b)
-    return cols, attrs.depth.detach()
-
-
 def _no_mark(stage: str):
     pass
 
@@ -169,22 +160,22 @@ def _project_and_bin(pointcloud, pointcloud_features, point_invalid_mask,
                      t_pointcloud_camera, camera_info, config, color_sh_mask,
                      object_edit=None, slab_format="wide16", mark=_no_mark):
     """Projection, then binning; `mark(stage)` is called after each (a
-    timing hook, see `rasterize_with_vjp`)."""
+    timing hook, see `rasterize_with_vjp`). Returns (attrs, the blend's
+    nine input columns (u, v, a, b, c, logw, r, g, b), depth, binning)."""
     q_cam, t_cam = inverse_SE3_qt(q_pointcloud_camera, t_pointcloud_camera)
-    attrs = compute_point_attributes(
+    attrs, cols = project_points(
         pointcloud, pointcloud_features, point_invalid_mask, point_object_id,
         q_cam, t_cam, t_pointcloud_camera, camera_info,
         config.near_plane, config.far_plane, color_sh_mask,
         object_edit=object_edit)
-    cols, depth = _blend_inputs_from_attrs(attrs)
     mark("projection")
     binning = bin_points_to_tiles(
         attrs.u, attrs.v, attrs.depth, attrs.radius_x, attrs.radius_y,
         attrs.emit, camera_info,
         depth_to_sort_key_scale=config.depth_to_sort_key_scale,
-        attr_cols=cols + (depth,), slab_format=slab_format)
+        attr_cols=cols + (attrs.depth,), slab_format=slab_format)
     mark("binning")
-    return attrs, cols, depth, binning
+    return attrs, cols, attrs.depth, binning
 
 
 def _result_from_tile_out(tile_out, attrs, binning, camera_info):
@@ -363,12 +354,8 @@ def rasterize_with_vjp(
         cotangents, stats = _route_to_points(grad_data, mag_tiles, binning,
                                              grid, n)
         mark("routing")
-        grad_pc, grad_feats = torch.autograd.grad(
-            cols, (pc, feats), cotangents, allow_unused=True)
-        if grad_pc is None:
-            grad_pc = torch.zeros_like(pc)
-        if grad_feats is None:
-            grad_feats = torch.zeros_like(feats)
+        grad_pc, grad_feats = torch.autograd.grad(cols, (pc, feats),
+                                                  cotangents)
         mark("projection backward")
         return grad_pc, grad_feats, stats
 

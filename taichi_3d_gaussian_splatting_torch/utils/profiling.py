@@ -14,7 +14,7 @@ plugin and Perfetto read.
 share a name prefix: over the ranges, the card's busy share, the kernel
 launches and device time per range, the kernels with the most device time,
 the host ops whose kernels take the most device time, and the time of the
-blend kernels (`csrc/`) by family.
+blend kernels (`csrc/`) by family and of the projection kernels.
 
     python -m taichi_3d_gaussian_splatting_torch.utils.profiling TRACE.json \\
         [--prefix "iteration "] [--top 10]
@@ -35,6 +35,9 @@ import torch
 WORK_LIST_KERNEL = "build_work_kernel"
 FORWARD_KERNELS = ("chunk_transmittance_kernel", "blend_forward_kernel")
 BACKWARD_KERNELS = ("backward_chunk_kernel", "blend_backward_kernel")
+# the projection kernels of csrc/ (one launch each per frame / step)
+PROJECTION_KERNELS = {"forward": "projection_forward_kernel",
+                      "backward": "projection_backward_kernel"}
 
 
 class TraceWindow:
@@ -192,7 +195,10 @@ def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
       that launched them (`_launching_ops`);
       blend: {"forward": ..., "backward": ...}, each {ms_per_range,
       launches_per_range, kernels: {base name: ms_per_range}}, the
-      launches counted by blend_forward_kernel / blend_backward_kernel.
+      launches counted by blend_forward_kernel / blend_backward_kernel;
+      projection: {"forward": ..., "backward": ...}, each {ms_per_range,
+      launches_per_range} of projection_forward_kernel /
+      projection_backward_kernel.
     Raises ValueError when the trace has no such range."""
     ranges = [e for e in _complete(events, "user_annotation")
               if e["name"].startswith(prefix)]
@@ -208,9 +214,17 @@ def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
 
     blend = {fam: {"ms_per_range": 0.0, "launches_per_range": 0.0,
                    "kernels": {}} for fam in ("forward", "backward")}
+    projection = {fam: {"ms_per_range": 0.0, "launches_per_range": 0.0}
+                  for fam in PROJECTION_KERNELS}
+    by_name = {name: fam for fam, name in PROJECTION_KERNELS.items()}
     pending = []
     for k in kernels:
         base = kernel_base_name(k["name"])
+        if base in by_name:
+            entry = projection[by_name[base]]
+            entry["ms_per_range"] += k["dur"] / 1000.0 / n
+            entry["launches_per_range"] += 1.0 / n
+            continue
         if base == WORK_LIST_KERNEL:
             pending.append(k)
             continue
@@ -236,7 +250,7 @@ def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
         "kernel_ms_per_range": sum(k["dur"] for k in kernels) / 1000.0 / n,
         "top": _ranked([k["name"] for k in kernels], kernels, n, top),
         "top_ops": _ranked(_launching_ops(events, kernels), kernels, n, top),
-        "blend": blend}
+        "blend": blend, "projection": projection}
 
 
 def format_summary(summary: dict, unit: str = "step") -> str:
@@ -251,6 +265,10 @@ def format_summary(summary: dict, unit: str = "step") -> str:
         lines.append(f"  blend {fam}: {entry['ms_per_range']:.4f} ms and "
                      f"{entry['launches_per_range']:.2f} launches per {unit}"
                      + (f" ({parts})" if parts else ""))
+    for fam, entry in s["projection"].items():
+        lines.append(f"  projection {fam}: {entry['ms_per_range']:.4f} ms "
+                     f"and {entry['launches_per_range']:.2f} launches per "
+                     f"{unit}")
     for key, what in (("top", "kernels"),
                       ("top_ops", "host ops by their kernels' time")):
         lines.append(f"  top {len(s[key])} {what} per {unit}:")

@@ -1,6 +1,7 @@
-"""The CUDA blend kernels (forward and backward) against their plain
-PyTorch versions on the card; one training step, two batch steps and the
-viewer's frames on the card against the same on the CPU.
+"""The CUDA blend kernels (forward and backward) and projection kernels
+(P1, P2) against their plain PyTorch versions on the card; one training
+step, two batch steps and the viewer's frames on the card against the same
+on the CPU.
 
 Marked `cuda`: skips without a card. Run on a machine with an H100 as
 
@@ -17,9 +18,13 @@ from taichi_3d_gaussian_splatting_torch.camera import CameraInfo
 from taichi_3d_gaussian_splatting_torch.models.scene import (
     GaussianPointCloudScene)
 from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+from taichi_3d_gaussian_splatting_torch.ops import projection as P
+from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
 from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
-    RasterizerConfig, _project_and_bin, rasterize)
+    RasterizerConfig, _project_and_bin, rasterize, rasterize_with_vjp)
+from taichi_3d_gaussian_splatting_torch.ops.sh import sh_band_mask
 from taichi_3d_gaussian_splatting_torch.ops.tiling import blend_slab
+from taichi_3d_gaussian_splatting_torch.ops.transforms import inverse_SE3_qt
 
 from torch_chunk_fixtures import (BOUNDARY_OFFSET, NUM_TILES, TILES_PER_ROW,
                                   long_segment_slab, shifted_slab)
@@ -76,6 +81,103 @@ def test_kernel_matches_plain(cuda, seed, alpha, label, cfg, fmt, rgb_only):
     if not rgb_only:
         for row in (BC.OUT_COUNT, BC.OUT_LAST_EFF):
             assert_counts_close(ref[:, row], got[:, row])
+
+
+def _projection_case(edit, device):
+    """Projection inputs of 60 points: one object at the identity pose, or
+    two objects with an edit transform and the SH mask of band 1."""
+    pc, feats = random_scene(60, seed=2)
+    rng = np.random.default_rng(5)
+    obj = np.zeros(60, np.int32)
+    q, t = identity_pose()
+    mask = object_edit = None
+    if edit:
+        obj = rng.integers(0, 2, 60).astype(np.int32)
+        q = np.tile(np.array([[0.05, -0.02, 0.01, 1.0]], np.float32), (2, 1))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        t = (rng.normal(size=(2, 3)) * 0.1).astype(np.float32)
+        qe = np.array([[0.1, 0.0, 0.2, 1.0], [0.0, 0.3, 0.0, 1.0]],
+                      np.float32)
+        object_edit = tuple(torch.as_tensor(x, device=device) for x in (
+            qe / np.linalg.norm(qe, axis=1, keepdims=True),
+            rng.uniform(0.7, 1.3, (2, 3)).astype(np.float32),
+            (rng.normal(size=(2, 3)) * 0.1).astype(np.float32)))
+        mask = sh_band_mask(1, device=device)
+    pc, feats, obj, q, t = (torch.as_tensor(x, device=device)
+                            for x in (pc, feats, obj, q, t))
+    invalid = torch.zeros(60, dtype=torch.int8, device=device)
+    invalid[:6] = 1
+    q_cam, t_cam = inverse_SE3_qt(q, t)
+    return (pc, feats, invalid, obj, q_cam, t_cam, t,
+            CameraInfo(camera_intrinsics(), 32, 32), mask, object_edit)
+
+
+@pytest.mark.parametrize("edit", [False, True], ids=["k1", "k2_edit_sh"])
+def test_projection_kernels_match_plain(cuda, edit):
+    """P1 against compute_point_attributes + blend_logw: the masks and the
+    non-finite count identical, the columns at rtol 1e-5 / atol 1e-6 (the
+    same float32 operations in the same order); P2 against
+    project_points_backward_torch at rtol 1e-4 / atol 1e-5 of each
+    gradient column's scale; one launch each."""
+    pc, feats, invalid, obj, q_cam, t_cam, t, cam, mask, object_edit = \
+        _projection_case(edit, cuda)
+    inputs = PC.projection_inputs(q_cam, t_cam, t, cam, 0.1, 100.0, mask,
+                                  object_edit)
+    before = dict(PC.launch_counts)
+    got, logw = PC.project_forward(pc, feats, invalid, obj, inputs)
+    torch.cuda.synchronize()
+    assert PC.launch_counts["project_forward"] == \
+        before["project_forward"] + 1
+    want = P.compute_point_attributes(pc, feats, invalid, obj, q_cam, t_cam,
+                                      t, cam, 0.1, 100.0, mask,
+                                      object_edit=object_edit)
+    for field in ("in_frustum", "emit", "nonfinite_points"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    assert 0 < int(got.emit.sum()) < 60
+    pairs = [(getattr(got, f), getattr(want, f)) for f in PC.FLOAT_ROWS[:-1]]
+    pairs.append((logw, P.blend_logw(want.rescale,
+                                     want.alpha_after_activation)))
+    for a, b in pairs:
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    cot = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(9, 60)).astype(np.float32), device=cuda)
+    got = PC.project_backward(pc, feats, obj, inputs, cot)
+    torch.cuda.synchronize()
+    assert PC.launch_counts["project_backward"] == \
+        before["project_backward"] + 1
+    want = P.project_points_backward_torch(pc, feats, obj, q_cam, t_cam, t,
+                                           cam, 0.1, cot, mask,
+                                           object_edit=object_edit)
+    for a, b in zip(got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert np.isfinite(a).all() and np.isfinite(b).all()
+        for col in range(b.shape[1]):
+            np.testing.assert_allclose(
+                a[:, col], b[:, col], rtol=1e-4,
+                atol=1e-5 * float(np.abs(b[:, col]).max()))
+
+
+def test_rasterize_with_vjp_launches_the_projection_kernels(cuda):
+    """One training view on the card: P1 once in the forward, P2 once in
+    vjp_fn, and the gradients of the CPU's plain path at rtol 2e-3 /
+    atol 1e-4."""
+    seed, alpha, _, cfg = AB_CASES[0]
+    grads = []
+    for device in (cuda, torch.device("cpu")):
+        _, _, _, (scene, q, t) = _inputs(seed, alpha, cfg, device)
+        PC.reset_launch_counts()
+        _, vjp_fn = rasterize_with_vjp(*scene, q, t,
+                                       CameraInfo(camera_intrinsics(), 32,
+                                                  32),
+                                       RasterizerConfig(**cfg))
+        gp, gf, _ = vjp_fn(torch.ones((32, 32, 3), device=device))
+        want = 1 if device.type == "cuda" else 0
+        assert PC.launch_counts == {"project_forward": want,
+                                    "project_backward": want}
+        grads.append((gp.cpu().numpy(), gf.cpu().numpy()))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
 
 
 def test_rasterize_on_card_matches_cpu(cuda):
@@ -301,7 +403,7 @@ def test_loaders_default_to_the_card(cuda, tmp_path):
 def test_trainer_trace_shows_the_kernels(cuda, tmp_path):
     """A profiled 32x32 run on the card: the trace file under
     <logs>/profile/ holds the two ranges and the forward and backward
-    blend kernels once per step."""
+    blend and projection kernels once per step."""
     from taichi_3d_gaussian_splatting_torch import config as tconfig
     from taichi_3d_gaussian_splatting_torch.training import trainer as TT
     from taichi_3d_gaussian_splatting_torch.utils import profiling as P
@@ -320,3 +422,4 @@ def test_trainer_trace_shows_the_kernels(cuda, tmp_path):
     assert summary["ranges"] == 2 and summary["kernels"] > 0
     for fam in ("forward", "backward"):
         assert summary["blend"][fam]["launches_per_range"] == 1.0, fam
+        assert summary["projection"][fam]["launches_per_range"] == 1.0, fam

@@ -22,6 +22,7 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.ops.transforms",
     "taichi_3d_gaussian_splatting_torch.ops.sh",
     "taichi_3d_gaussian_splatting_torch.ops.projection",
+    "taichi_3d_gaussian_splatting_torch.ops.projection_cuda",
     "taichi_3d_gaussian_splatting_torch.ops.tiling",
     "taichi_3d_gaussian_splatting_torch.ops._build",
     "taichi_3d_gaussian_splatting_torch.ops.blend_cuda",

@@ -208,6 +208,28 @@ def test_summarize_trace_on_known_events():
         P.summarize_trace(events, prefix="frame ")
 
 
+def test_summarize_trace_reports_the_projection_kernels():
+    """The projection kernels are counted per range on their own, beside
+    the blend families, whatever their template arguments."""
+    events = [
+        _x("user_annotation", "iteration 1", 0, 50),
+        _x("user_annotation", "iteration 2", 50, 50),
+        _x("kernel", "void t3dgs_proj::(anonymous namespace)::"
+           "projection_forward_kernel(float const*)", 5, 4),
+        _x("kernel", "void t3dgs_proj::(anonymous namespace)::"
+           "projection_backward_kernel(float const*)", 20, 8),
+        _x("kernel", "projection_forward_kernel(float const*)", 55, 6),
+    ]
+    s = P.summarize_trace(events)
+    proj = s["projection"]
+    assert proj["forward"]["launches_per_range"] == pytest.approx(1.0)
+    assert proj["forward"]["ms_per_range"] == pytest.approx(0.005)
+    assert proj["backward"]["launches_per_range"] == pytest.approx(0.5)
+    assert proj["backward"]["ms_per_range"] == pytest.approx(0.004)
+    assert s["blend"]["forward"]["launches_per_range"] == 0.0
+    assert "projection backward: 0.0040 ms" in P.format_summary(s)
+
+
 def test_launching_ops_take_the_outermost_op_of_the_call():
     """A kernel is charged to the outermost CPU op around the runtime call
     of the same correlation id, on that call's thread (an op and its child
