@@ -152,7 +152,8 @@ def test_card_fixtures_import_no_jax():
     """chip_smoke.py's helpers from tests/ run where JAX is absent."""
     code = ("import sys\n"
             "import torch_port_fixtures, torch_train_fixtures, "
-            "torch_chunk_fixtures, torch_capture_fixtures\n"
+            "torch_chunk_fixtures, torch_capture_fixtures, "
+            "torch_quality_fixtures\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') "
             "or m.startswith('taichi_3d_gaussian_splatting_tpu'))\n"
