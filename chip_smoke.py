@@ -123,6 +123,20 @@ Phases (any failure exits non-zero; nothing is caught):
      CLI at a held-out view (PSNR within 1 dB of the trainer's own
      validation render of that view) and through the bench (BENCH_SCENE,
      BENCH_TRAIN=0), record printed.
+ 12. the K1 probes (taichi_3d_gaussian_splatting_torch/probes/):
+     the probe library built from csrc/probes/; each probe's entry point
+     (the timing function its `main` runs) in every mode, with the probes'
+     launch counts reset just before and read just after, every mode
+     launched: S4 (K1's stages stripped) on the 430k and 1.03M wide16
+     slabs, S1 (the exponent three ways), S3 (one stage removed at a time)
+     and S2 (keys by pixels, the exponent as an FP64 tensor-core product)
+     on their own layout and, for S2, the 430k slab rewritten into its
+     rows. Then every mode's kernel against its plain version at full size
+     (S2's with the exponent rounded as the kernel's FP64 product rounds
+     it), S4 `full` against K1 (bitwise or not, printed) and K1's plain
+     version at 430k, the decisions float32's exponent product flips in S2,
+     S1's SASS (MUFU.EX2 and the instructions around it), each mode's time
+     beside its plain version's and each `full` mode's bound.
 
 Every phase that renders or trains checks that P1 launched once per blend
 forward (K1 or K2) and P2 once per K3 launch.
@@ -133,7 +147,10 @@ its plain version's, its bound and what sets it (tests/
 torch_chunk_fixtures.py work for the blends, the bytes and operations per
 point of PROJECTION_BYTES / PROJECTION_OPS for P1 and P2 at the trainer's
 860,000 slots), the pairs a blend evaluates, and library_ms null (no
-PyTorch call computes the blend or the projection). The last line is {"ok": true, "device": {...}}.
+PyTorch call computes the blend or the projection); then the four probes'
+`full` modes (S1's exp) at their main shapes (S4 430k, S2 and S3 their
+layout; launches over phase 12's entry points). The last line is {"ok":
+true, "device": {...}}.
 Needs no network and imports no JAX.
 """
 
@@ -259,6 +276,29 @@ HELD_OUT_CONTROLLER = dict(
 # phase 11 (c): the render CLI's PSNR of a held-out view of the trained
 # scene against the trainer's own validation render of it
 RENDER_CLI_PSNR_ATOL_DB = 1.0
+# phase 12: the K1 probes (taichi_3d_gaussian_splatting_torch/probes/).
+# Float operations a (pixel, key) pair takes by what the key does to the
+# pixel (skipped, saturating, contributing), counted from the sources as
+# tests/torch_chunk_fixtures.py counts K1's (expf as one): S4, K1's alpha
+# step, 14 / 18 / 27 (K1's 26 and the `one` row's product); S3, 12 (dx,
+# dy, its exponent's 8, expf, the compare) / 16 (clamp, 1 - alpha, T (1 -
+# alpha), the compare) / 33 (w and 8 rows' FMAs); S2's walk 2 (expf, the
+# compare) / 6 / 23, beside its product's 16 (8 FMAs) for every (key,
+# pixel) of every chunk walked, on the FP64 tensor cores (67 TFLOP/s). S1:
+# per (output, step) 26 for exp (1e-6 i, 8 adds, 8 FMAs, expf, the sum),
+# 27 for exp2mul, 34 for exp2pre.
+PROBE_PAIR_OPS = {"S4": (14, 18, 27), "S3": (12, 16, 33), "S2": (2, 6, 23)}
+S2_PRODUCT_OPS = 16
+S1_OPS = {"exp": 26, "exp2mul": 27, "exp2pre": 34}
+# slab rows each probe kernel reads
+PROBE_ROWS = {"S4": 10, "S3": 14, "S2": 16}
+# transcendental results a clock on one SM (sm_90), and the H100's SMs
+SFU_PER_CLOCK, H100_SMS = 16, 132
+# kernel against plain version: K1's rules (ROADMAP.md, rules for K1-K3);
+# S1 sums the same 4,096 terms in the same order, its exponent's 8 terms
+# in another
+PROBE_RTOL, PROBE_ATOL = 2e-3, 1e-4
+S1_RTOL = 1e-4
 
 
 def fail(msg):
@@ -1510,6 +1550,311 @@ def trained_scene_phase(root, logs, card, fail):
           + f"; {seconds:.1f} s", flush=True)
 
 
+def probe_work(name, slab, tile_starts, tile_ends, num_tiles, tiles_per_row,
+               pairs_slab=None):
+    """The work of probe `name`'s `full` mode ("S4", "S3", "S2") on these
+    inputs: {"bytes", "ops", "bound_ms", "bound_by", "pairs"}. Pairs by
+    tests/torch_chunk_fixtures.py pair_counts on `pairs_slab` (a wide16
+    slab of the same keys in K1's form; default `slab`): each pixel's keys
+    up to its saturating key. S2 adds its product over every chunk walked
+    (a tile leaves after the chunk of its last pixel's saturating key)."""
+    import torch
+    from torch_chunk_fixtures import pair_counts
+    counts = pair_counts(slab if pairs_slab is None else pairs_slab,
+                         tile_starts, tile_ends, num_tiles=num_tiles,
+                         tiles_per_row=tiles_per_row)
+    skipped, saturating, contributing = (
+        int(counts[k].sum()) for k in ("skipped", "saturating",
+                                       "contributing"))
+    o_skip, o_sat, o_con = PROBE_PAIR_OPS[name]
+    ops = o_skip * skipped + o_sat * saturating + o_con * contributing
+    mk = slab.shape[1]
+    nbytes = 4 * (PROBE_ROWS[name] * mk + 8 * num_tiles * 256
+                  + 2 * num_tiles)
+    t_ops = ops / PEAK_FLOPS * 1e3
+    if name == "S2":
+        start = tile_starts.long().clamp(0, mk)
+        end = torch.maximum(tile_ends.long().clamp(max=mk), start)
+        aligned = start // 128 * 128
+        chunks = torch.where(end > start, (end - aligned + 127) // 128, 0)
+        sat_pos = counts["sat_pos"]
+        last = torch.where((sat_pos < 0).any(dim=1), chunks - 1,
+                           (start - aligned + sat_pos.amax(dim=1)) // 128)
+        walked = int(torch.where(chunks > 0, last + 1, 0).sum())
+        product = S2_PRODUCT_OPS * walked * 128 * 256
+        ops += product
+        # the FP64 tensor cores and the float32 pipes run side by side
+        t_ops = max(t_ops, product / PEAK_FLOPS * 1e3)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pairs": skipped + saturating + contributing,
+            "contributing": contributing}
+
+
+def s1_sass_summary():
+    """What S1's three kernels compile to: per kernel of the probe library
+    (cuobjdump -sass), its instruction count, its MUFU.EX2 count and the
+    instructions around its first MUFU.EX2."""
+    from taichi_3d_gaussian_splatting_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    libs = sorted(_build.BUILD_DIR.glob("libt3dgs_probes_*.so"))
+    if not os.path.isfile(tool) or not libs:
+        print("  S1 SASS: cuobjdump or the probe library not found",
+              flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(libs[-1])], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    for block in sass.split("Function : ")[1:]:
+        if "exp2_probe_kernel" not in block.splitlines()[0]:
+            continue
+        lines = [ln for ln in block.splitlines() if "/*" in ln and ";" in ln]
+        ex2 = [i for i, ln in enumerate(lines) if "MUFU.EX2" in ln]
+        print(f"  S1 SASS {block.splitlines()[0].strip()}: {len(lines)} "
+              f"instructions, {len(ex2)} MUFU.EX2", flush=True)
+        if ex2:
+            for ln in lines[max(0, ex2[0] - 8):ex2[0] + 4]:
+                print(f"    {ln.split(';')[0].split('*/')[-1].strip()}",
+                      flush=True)
+
+
+def probes_phase(card, fail):
+    """Phase 12: the K1 probes. Builds the probe library, drives each
+    probe's entry point (the timing function its `main` runs) in every
+    mode with the launch counts reset just before and read just after, then
+    holds every mode's kernel against its plain version on the card at the
+    probe's full size, S4 `full` against K1 and its plain version, and S2
+    against its plain version with the exponent rounded as the kernel's
+    FP64 product rounds it, counting the decisions float32's product flips.
+    Returns the kernels line's four entries."""
+    import torch
+    from taichi_3d_gaussian_splatting_torch.ops import _build
+    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+    from taichi_3d_gaussian_splatting_torch.probes import _common as PC
+    from taichi_3d_gaussian_splatting_torch.probes import (
+        perf_exp2_probe as S1, perf_flip_proto as S2,
+        perf_kernel_ablate as S3, perf_rgb_ablate2 as S4)
+
+    t0 = time.perf_counter()
+    _build.load_probe_library()
+    print(f"probe build: {time.perf_counter() - t0:.2f} s (nvcc + load)",
+          flush=True)
+    t_phase = t0
+    for line in _build.probe_build_log.splitlines():
+        if "ptxas info" in line and ("registers" in line
+                                     or "Compiling" in line):
+            print(f"  {line.strip()}", flush=True)
+    s1_sass_summary()
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sfu_per_s = SFU_PER_CLOCK * H100_SMS * clock_mhz * 1e6
+
+    # inputs (set-up, outside every timed call)
+    s4_in = {"430k": S4.inputs("430k"), "1.03M heavy": S4.inputs("heavy")}
+    s3_in = S3.layout()
+    slab430, starts430, ends430, cam = s4_in["430k"]
+    s2_in = {"s2": S2.inputs("s2"),
+             "430k": (S2.from_wide16(slab430), starts430, ends430,
+                      cam.num_tiles, cam.tiles_per_row)}
+    coef, mono = S1.probe_inputs()
+    tile_kw = dict(num_tiles=cam.num_tiles, tiles_per_row=cam.tiles_per_row)
+    s3_kw = dict(num_tiles=S3.NUM_TILES, tiles_per_row=S3.TILES_PER_ROW)
+
+    # each probe's entry point, every mode: the launches of this run only
+    for module in (S4, S1, S3, S2):
+        module.reset_launch_counts()
+    ms = {f"S4 {k}": S4.time_modes(*v) for k, v in s4_in.items()}
+    s1 = S1.time_variants(coef, mono)
+    ms["S1"] = {v: s1[v][0] for v in S1.VARIANTS}
+    ms["S3"] = S3.time_modes(*s3_in)
+    ms.update({f"S2 {k}": S2.time_modes(*v) for k, v in s2_in.items()})
+    torch.cuda.synchronize()
+    launches = {name: dict(module.launch_counts) for name, module in
+                (("S4", S4), ("S1", S1), ("S3", S3), ("S2", S2))}
+    print(f"probe launches during their entry points: {launches}",
+          flush=True)
+    for name, counts in launches.items():
+        if min(counts.values()) < 1:
+            fail(f"probe {name}: a mode never launched its kernel: {counts}")
+
+    err = {name: 0.0 for name in launches}
+    plain_ms = {}
+
+    def hold(name, label, got, ref, rtol=PROBE_RTOL, atol=PROBE_ATOL):
+        got, ref = got.cpu().numpy(), ref.cpu().numpy()
+        if not np.isfinite(got).all():
+            fail(f"{label}: non-finite kernel output")
+        d = float(np.abs(got - ref).max())
+        err[name] = max(err[name], d)
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
+                                   err_msg=label)
+        return d
+
+    # S4: every mode against its plain version, at 430k and 1.03M
+    for scene, (slab, starts, ends, cam_s) in s4_in.items():
+        kw = dict(num_tiles=cam_s.num_tiles,
+                  tiles_per_row=cam_s.tiles_per_row)
+        for mode in S4.MODES:
+            def plain():
+                return S4.rgb_ablate2_torch(slab, starts, ends, mode=mode,
+                                            **kw)
+            p_ms = time_ms(plain, 1, warmup=0)
+            plain_ms[f"S4 {scene} {mode}"] = p_ms
+            d = hold("S4", f"S4 {scene} {mode}",
+                     S4.rgb_ablate2(slab, starts, ends, mode=mode, **kw),
+                     plain())
+            print(f"S4 {scene} {mode}: kernel {ms[f'S4 {scene}'][mode]:.4f} "
+                  f"ms, plain {p_ms:.4f} ms, max |d| {d:.3g} ({card})",
+                  flush=True)
+    # S4 full against K1 (wide16, rgb_only) and K1's plain version
+    unpadded = slab430[:, :int(ends430.max())].contiguous()
+    k1 = BC.blend_forward(unpadded, starts430, ends430, rgb_only=True,
+                          **tile_kw)
+    s4_full = S4.rgb_ablate2(slab430, starts430, ends430, mode="full",
+                             **tile_kw)
+    k1_plain = BC.blend_forward_torch(unpadded, starts430, ends430,
+                                      rgb_only=True, **tile_kw)
+    rows = ((0, BC.OUT_R), (1, BC.OUT_G), (2, BC.OUT_B),
+            (3, BC.OUT_ACC_ALPHA), (4, BC.OUT_NORM))
+    bitwise = all(torch.equal(s4_full[:, a], k1[:, b]) for a, b in rows)
+    for a, b in rows:
+        hold("S4", f"S4 full row {a} vs K1 row {b}", s4_full[:, a], k1[:, b])
+        hold("S4", f"S4 full row {a} vs K1's plain row {b}", s4_full[:, a],
+             k1_plain[:, b])
+    k1_ms = {}
+    for scene, (slab, starts, ends, cam_s) in s4_in.items():
+        cut = slab[:, :int(ends.max())].contiguous()
+        k1_ms[scene] = time_ms(lambda: BC.blend_forward(
+            cut, starts, ends, num_tiles=cam_s.num_tiles,
+            tiles_per_row=cam_s.tiles_per_row, rgb_only=True), 20)
+    print(f"S4 full vs K1 (wide16) at 430k: bitwise equal {bitwise}; K1 "
+          f"{k1_ms['430k']:.4f} ms, S4 full {ms['S4 430k']['full']:.4f} ms; "
+          f"at 1.03M K1 {k1_ms['1.03M heavy']:.4f} ms, S4 full "
+          f"{ms['S4 1.03M heavy']['full']:.4f} ms ({card})", flush=True)
+
+    # S1: every variant against its plain version; the probe's figure
+    for variant in S1.VARIANTS:
+        def plain():
+            return S1.exp2_probe_torch(coef, mono, variant=variant)
+        p_ms = time_ms(plain, 1, warmup=0)
+        plain_ms[f"S1 {variant}"] = p_ms
+        d = hold("S1", f"S1 {variant}", s1[variant][1], plain(),
+                 rtol=S1_RTOL, atol=0.0)
+        print(f"S1 {variant}: kernel {ms['S1'][variant]:.4f} ms "
+              f"({ms['S1'][variant] / S1.N_CHUNKS * 1e6:.2f} ns a chunk), "
+              f"plain {p_ms:.4f} ms, max |d| {d:.3g} ({card})", flush=True)
+    print("S1 max rel diff vs exp: " + ", ".join(
+        f"{v} {S1.max_rel_diff(s1['exp'][1], s1[v][1]):.3g}"
+        for v in ("exp2mul", "exp2pre")), flush=True)
+
+    # S3: every mode against its plain version
+    for mode in S3.MODES:
+        def plain():
+            return S3.kernel_ablate_torch(*s3_in, mode=mode, **s3_kw)
+        p_ms = time_ms(plain, 1, warmup=0)
+        plain_ms[f"S3 {mode}"] = p_ms
+        d = hold("S3", f"S3 {mode}",
+                 S3.kernel_ablate(*s3_in, mode=mode, **s3_kw), plain())
+        print(f"S3 {mode}: kernel {ms['S3'][mode]:.4f} ms, plain "
+              f"{p_ms:.4f} ms, max |d| {d:.3g} ({card})", flush=True)
+
+    # S2: against its plain version with the kernel's exponent (float64
+    # product rounded once); float32's (the TPU probe's) flips counted
+    for layout, (slab, starts, ends, nt, tpr) in s2_in.items():
+        kw = dict(num_tiles=nt, tiles_per_row=tpr)
+        for mode in S2.MODES:
+            def plain(dtype=torch.float64):
+                return S2.flip_proto_torch(slab, starts, ends, mode=mode,
+                                           exponent_dtype=dtype, **kw)
+            got = S2.flip_proto(slab, starts, ends, mode=mode, **kw)
+            p_ms = time_ms(lambda: plain(torch.float32), 1, warmup=0)
+            plain_ms[f"S2 {layout} {mode}"] = p_ms
+            d = hold("S2", f"S2 {layout} {mode}", got, plain())
+            f32 = plain(torch.float32)
+            d32 = (got - f32).abs()
+            outside = int((d32 > PROBE_ATOL + PROBE_RTOL * f32.abs()).sum())
+            print(f"S2 {layout} {mode}: kernel {ms[f'S2 {layout}'][mode]:.4f}"
+                  f" ms, plain {p_ms:.4f} ms; max |d| {d:.3g} against the "
+                  f"float64-exponent plain version; against float32's: max "
+                  f"|d| {float(d32.max()):.3g}, {outside} of {d32.numel()} "
+                  f"values outside rtol {PROBE_RTOL} / atol {PROBE_ATOL} "
+                  f"({card})", flush=True)
+        flips = S2.decision_flips(slab, starts, ends, **kw)
+        print(f"S2 {layout}: decisions flipped by float32's exponent "
+              f"product against the kernel's: {flips['skip']} of "
+              f"{flips['pairs']} skip decisions, {flips['saturation']} of "
+              f"{flips['pixels']} pixels' saturating key", flush=True)
+    s2_430 = S2.flip_proto(*s2_in["430k"][:3], mode="full", **tile_kw)
+    print(f"S2 full vs S4 full (K1) at 430k: max |d| r, g, b "
+          f"{float((s2_430[:, 0:3] - s4_full[:, 0:3]).abs().max()):.3g}, "
+          f"1 - T {float((s2_430[:, 4] - s4_full[:, 3]).abs().max()):.3g}",
+          flush=True)
+
+    # bounds of each `full` mode, beside the times
+    s3_mapped = s3_in[0].clone()
+    s3_mapped[BC.ROW_A] *= -2.0
+    s3_mapped[BC.ROW_B] *= -1.0
+    s3_mapped[BC.ROW_C] *= -2.0
+    work = {"S4 430k": probe_work("S4", slab430, starts430, ends430,
+                                  **tile_kw),
+            "S4 1.03M heavy": probe_work(
+                "S4", *s4_in["1.03M heavy"][:3],
+                num_tiles=s4_in["1.03M heavy"][3].num_tiles,
+                tiles_per_row=s4_in["1.03M heavy"][3].tiles_per_row),
+            "S3": probe_work("S3", *s3_in, pairs_slab=s3_mapped, **s3_kw),
+            "S2 s2": probe_work("S2", *s2_in["s2"][:3],
+                                pairs_slab=s3_mapped, **s3_kw),
+            "S2 430k": probe_work("S2", *s2_in["430k"][:3],
+                                  pairs_slab=slab430, **tile_kw)}
+    outputs = S1.N_CHUNKS * 128 * 256
+    s1_bytes = 4 * (8 * 128 + 256 * 8 + 128 * 256)
+    for variant in S1.VARIANTS:
+        t_ops = outputs * S1_OPS[variant] / PEAK_FLOPS * 1e3
+        t_bytes = s1_bytes / PEAK_BYTES_PER_S * 1e3
+        work[f"S1 {variant}"] = {
+            "bytes": s1_bytes, "ops": outputs * S1_OPS[variant],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pairs": outputs}
+    sfu_ms = outputs / sfu_per_s * 1e3
+    for key, wk in work.items():
+        if key.startswith("S1"):
+            label, kernel = key, ms["S1"][key.split()[1]]
+        else:
+            label, kernel = f"{key} full", ms[key]["full"]
+        print(f"bound {label}: "
+              f"{wk['bound_ms']:.4f} ms by {wk['bound_by']} ({wk['ops']} "
+              f"operations, {wk['bytes']} bytes, {wk['pairs']} pairs); "
+              f"kernel {kernel:.4f} ms, {wk['bound_ms'] / kernel:.1%} of "
+              f"bound ({card})", flush=True)
+    print(f"SFU: {outputs} transcendentals a call of S1 take at least "
+          f"{sfu_ms:.4f} ms at {SFU_PER_CLOCK} a clock per SM, {H100_SMS} "
+          f"SMs, {clock_mhz:.0f} MHz; S2 full's {work['S2 s2']['pairs']} "
+          f"pairs at its layout {work['S2 s2']['pairs'] / sfu_per_s * 1e3:.4f}"
+          f" ms", flush=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # the kernels line: each probe's `full` (S1's exp) at its main shapes
+    entries = []
+    for name, module, key, full, plain_key in (
+            ("S4", S4, "S4 430k", "full", "S4 430k full"),
+            ("S1", S1, "S1 exp", "exp", "S1 exp"),
+            ("S3", S3, "S3", "full", "S3 full"),
+            ("S2", S2, "S2 s2", "full", "S2 s2 full")):
+        kernel_ms = ms["S1"]["exp"] if name == "S1" else ms[key][full]
+        entries.append({
+            "name": f"probe_{module.__name__.rsplit('.', 1)[1]}",
+            "route": "cuda", "source": module.SOURCE,
+            "replaces": module.REPLACES,
+            "launches": sum(launches[name].values()),
+            "max_abs_err": err[name], "ms": kernel_ms,
+            "plain_ms": plain_ms[plain_key],
+            "bound_ms": work[key]["bound_ms"],
+            "bound_by": work[key]["bound_by"], "library_ms": None})
+    return entries
+
+
 def main():
     import torch
 
@@ -1998,6 +2343,8 @@ def main():
         held_out = os.path.join(tmp, "held_out")
         logs = held_out_phase(held_out, card, fail)
         trained_scene_phase(held_out, logs, card, fail)
+    # ---- 12. the K1 probes ----------------------------------------------
+    probe_entries = probes_phase(card, fail)
     launches["blend_backward"] = train_launches["blend_backward"]
     launches["project_backward"] = train_launches["project_backward"]
 
@@ -2023,6 +2370,7 @@ def main():
                  "bound_ms": p_bounds[name][0], "bound_by": p_bounds[name][1],
                  "library_ms": None}
                 for name in ("project_forward", "project_backward")]
+    kernels += probe_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,11 @@ are linked into one shared library whose file name carries the hash of the
 sources (headers included) and flags, under ``csrc/build/`` (listed in
 ``.gitignore``), and loaded with ``ctypes``. A second call in the same
 process, or a later process with unchanged sources, reuses the library.
+
+The K1 ablation probes' sources (``csrc/probes/*.cu``) build the same way
+into a library of their own (``load_probe_library``), hashed over those
+sources and every header they include, so that the kernel library's name
+does not depend on them.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -138,3 +144,65 @@ def load_library():
         build_log = _compile(nvcc, sources, lib_path)
     _library = _declare(ctypes.CDLL(str(lib_path)))
     return _library
+
+
+# The K1 ablation probes (taichi_3d_gaussian_splatting_torch/probes/): their
+# sources in csrc/probes/, built into a library of their own, so that the
+# kernel library above and its hash do not depend on them.
+PROBE_DIR = CSRC_DIR / "probes"
+_probe_library = None
+# ptxas -v of the last probe build made in this process
+probe_build_log = ""
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _included(path, seen):
+    """`path` and every header it includes by a quoted #include, in the
+    order first reached (headers are looked up beside their includer)."""
+    path = path.resolve()
+    if path in seen:
+        return
+    seen[path] = None
+    for name in _INCLUDE.findall(path.read_text()):
+        _included(path.parent / name, seen)
+
+
+def _declare_probes(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # data, tile_starts, tile_ends, num_tiles, mk, tiles_per_row, mode,
+    # out, stream (perf_rgb_ablate2.cu, perf_kernel_ablate.cu,
+    # perf_flip_proto.cu)
+    for name in ("t3dgs_probe_rgb_ablate2", "t3dgs_probe_kernel_ablate",
+                 "t3dgs_probe_flip_proto"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, i, i, i, i, p, p]
+        fn.restype = i
+    # coef, mono, n_chunks, variant, out, stream (perf_exp2_probe.cu)
+    fn = lib.t3dgs_probe_exp2
+    fn.argtypes = [p, p, i, i, p, p]
+    fn.restype = i
+    return lib
+
+
+def load_probe_library():
+    """Build (if needed) and load the probes' kernel library from
+    csrc/probes/*.cu; returns the CDLL. Its file name carries the hash of
+    the probe sources, every header they include and the flags."""
+    global _probe_library, probe_build_log
+    if _probe_library is not None:
+        return _probe_library
+    sources = sorted(PROBE_DIR.glob("*.cu"))
+    seen = {}
+    for src in sources:
+        _included(src, seen)
+    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    for path in sorted(seen):
+        digest.update(str(path.relative_to(CSRC_DIR)).encode())
+        digest.update(path.read_bytes())
+    lib_path = BUILD_DIR / f"libt3dgs_probes_{digest.hexdigest()[:16]}.so"
+    if not lib_path.is_file():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        probe_build_log = _compile(nvcc, sources, lib_path)
+    _probe_library = _declare_probes(ctypes.CDLL(str(lib_path)))
+    return _probe_library

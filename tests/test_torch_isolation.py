@@ -2,6 +2,7 @@
 blend wrapper counts only real kernel launches, and a request for anything
 but the CPU path either launches the CUDA kernel or raises."""
 
+import importlib
 import os
 import subprocess
 import sys
@@ -51,7 +52,15 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.tools",
     "taichi_3d_gaussian_splatting_torch.tools.prepare_kitti",
     "taichi_3d_gaussian_splatting_torch.bench",
+    "taichi_3d_gaussian_splatting_torch.probes",
+    "taichi_3d_gaussian_splatting_torch.probes._common",
+    "taichi_3d_gaussian_splatting_torch.probes.perf_rgb_ablate2",
+    "taichi_3d_gaussian_splatting_torch.probes.perf_exp2_probe",
+    "taichi_3d_gaussian_splatting_torch.probes.perf_kernel_ablate",
+    "taichi_3d_gaussian_splatting_torch.probes.perf_flip_proto",
 ]
+PROBE_NAMES = ["perf_rgb_ablate2", "perf_exp2_probe", "perf_kernel_ablate",
+               "perf_flip_proto"]
 
 
 def test_port_modules_import_no_jax():
@@ -165,3 +174,67 @@ def test_card_fixtures_import_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == "ok"
+
+
+def _probes():
+    return [importlib.import_module(
+        f"taichi_3d_gaussian_splatting_torch.probes.{name}")
+        for name in PROBE_NAMES]
+
+
+def _probe_calls(make):
+    """(module, call) per probe wrapper, its tensors made by make(tensor)."""
+    S4, S1, S3, S2 = _probes()
+    slab = make(torch.zeros((16, 128)))
+    ranges = make(torch.zeros(2, dtype=torch.int32))
+    kw = dict(mode="full", num_tiles=2, tiles_per_row=2)
+    return [
+        (S4, lambda: S4.rgb_ablate2(slab, ranges, ranges, **kw)),
+        (S3, lambda: S3.kernel_ablate(slab, ranges, ranges, **kw)),
+        (S2, lambda: S2.flip_proto(slab, ranges, ranges, **kw)),
+        (S1, lambda: S1.exp2_probe(make(torch.zeros((8, 128))),
+                                   make(torch.zeros((256, 8))),
+                                   variant="exp"))]
+
+
+@pytest.mark.parametrize("name", PROBE_NAMES)
+def test_probe_main_raises_without_a_card(name, monkeypatch):
+    """A probe's entry point measures the card: without one it raises
+    before it builds or times anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = importlib.import_module(
+        f"taichi_3d_gaussian_splatting_torch.probes.{name}")
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        module.main([])
+
+
+def test_probe_wrappers_on_other_devices_raise():
+    """A probe wrapper given neither CPU nor CUDA tensors raises; none
+    counts a launch."""
+    meta = torch.device("meta")
+    for module, call in _probe_calls(lambda t: t.to(meta)):
+        module.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="cpu or cuda"):
+            call()
+        assert sum(module.launch_counts.values()) == 0
+
+
+def test_probe_cuda_launch_without_cuda_raises(monkeypatch):
+    """CUDA inputs on a machine without the toolchain: the probe library's
+    build raises out of each wrapper, nothing falls back to the plain
+    version and no launch is counted."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernels build and launch")
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has a CUDA toolkit")
+    monkeypatch.setattr(_build, "_probe_library", None)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    for module, call in _probe_calls(_OnCuda):
+        module.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+        assert sum(module.launch_counts.values()) == 0
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_probe_library()
