@@ -123,7 +123,7 @@ Phases (any failure exits non-zero; nothing is caught):
      CLI at a held-out view (PSNR within 1 dB of the trainer's own
      validation render of that view) and through the bench (BENCH_SCENE,
      BENCH_TRAIN=0), record printed.
- 12. the K1 probes (taichi_3d_gaussian_splatting_torch/probes/):
+ 12. the probes (taichi_3d_gaussian_splatting_torch/probes/):
      the probe library built from csrc/probes/; each probe's entry point
      (the timing function its `main` runs) in every mode, with the probes'
      launch counts reset just before and read just after, every mode
@@ -131,12 +131,23 @@ Phases (any failure exits non-zero; nothing is caught):
      slabs, S1 (the exponent three ways), S3 (one stage removed at a time)
      and S2 (keys by pixels, the exponent as an FP64 tensor-core product)
      on their own layout and, for S2, the 430k slab rewritten into its
-     rows. Then every mode's kernel against its plain version at full size
+     rows, S5 (the instruction mixes of K1's inner loop, 256 programs of
+     300 repetitions, every run of the TPU probe and mxu_t) and S6 (the
+     roll and doubling scans by warp shuffles, and the work list's
+     block_exclusive_sum). Then every mode's kernel against its plain version at full size
      (S2's with the exponent rounded as the kernel's FP64 product rounds
      it), S4 `full` against K1 (bitwise or not, printed) and K1's plain
      version at 430k, the decisions float32's exponent product flips in S2,
      S1's SASS (MUFU.EX2 and the instructions around it), each mode's time
-     beside its plain version's and each `full` mode's bound.
+     beside its plain version's and each `full` mode's bound. S5: each
+     run's SASS (a repetition loop in every instance, SHFL.UP in lane, no
+     FFMA in mul7), each run against its plain version at full size and at
+     1-3 repetitions of uniform(0.5, 1) input (mul7, lane and sub bitwise,
+     exp at rtol 1e-6, mxu and mxu_t at rtol 1e-5), the shares of zeros,
+     subnormals and infinities in its output, its time against 30
+     repetitions (at least 5x less), its plain time and bound. S6: every
+     plane bitwise against its plain version, each work_list_scan draw
+     exactly its sequential sum (PASS), times beside torch.roll's.
 
 Every phase that renders or trains checks that P1 launched once per blend
 forward (K1 or K2) and P2 once per K3 launch.
@@ -149,7 +160,8 @@ point of PROJECTION_BYTES / PROJECTION_OPS for P1 and P2 at the trainer's
 860,000 slots), the pairs a blend evaluates, and library_ms null (no
 PyTorch call computes the blend or the projection); then the four probes'
 `full` modes (S1's exp) at their main shapes (S4 430k, S2 and S3 their
-layout; launches over phase 12's entry points). The last line is {"ok":
+layout; launches over phase 12's entry points), S5's lane mode and S6's
+planes (library_ms torch.roll's). The last line is {"ok":
 true, "device": {...}}.
 Needs no network and imports no JAX.
 """
@@ -299,6 +311,29 @@ SFU_PER_CLOCK, H100_SMS = 16, 132
 # in another
 PROBE_RTOL, PROBE_ATOL = 2e-3, 1e-4
 S1_RTOL = 1e-4
+# S5 (perf_roll_micro.cu): float32 operations an (element, repetition),
+# counted from the source: mul7 7 multiplies and 7 adds, lane and sub one
+# multiply a doubling step (7), exp its 2 multiplies beside one expf on the
+# SFU, mxu / mxu_t acc * 1e-3 + dot * 1e-6 (3) beside the product's 8 FMAs
+# (16 operations) on the FP64 tensor cores (67 TFLOP/s, as float32 outside
+# them)
+S5_OPS = {"mul7": 14, "lane": 7, "sub": 7, "exp": 2, "mxu": 3, "mxu_t": 3}
+S5_FP64_OPS = 16
+PEAK_FP64_TENSOR_FLOPS = 67e12
+# S5 kernel against plain version: the modes that round as the plain
+# version does, op for op, are held bitwise; exp's expf and the products'
+# order of sum round otherwise (measured at 1-3 repetitions: a few ulp)
+S5_BITWISE = ("mul7", "lane", "sub")
+S5_TOL = {"exp": (1e-6, 0.0), "mxu": (1e-5, 1e-30), "mxu_t": (1e-5, 1e-30)}
+S5_SHORT_REPS = (1, 2, 3)
+# S5's repetitions as a loop: a run of S5_LOOP_REPS must take at least
+# S5_LOOP_MIN_RATIO times less than one of 300 (a loop unrolled away or
+# folded would not scale)
+S5_LOOP_REPS, S5_LOOP_MIN_RATIO = 30, 5.0
+# S5's instances in the probe library's SASS (cuobjdump -sass names)
+S5_SASS = {"mul7": "elementwise_kernelILi0E", "exp": "elementwise_kernelILi3E",
+           "lane": "lane_scan_kernel", "sub": "sub_scan_kernel",
+           "mxu": "mxu_kernelILi4E", "mxu_t": "mxu_kernelILi5E"}
 
 
 def fail(msg):
@@ -1618,6 +1653,197 @@ def s1_sass_summary():
                       flush=True)
 
 
+def s5_sass_summary(fail):
+    """What S5's six instances compile to (cuobjdump -sass of the probe
+    library): per instance its instruction count, backward branches (the
+    repetition loop) and counts of SHFL.UP, FFMA, FMUL, FADD, MUFU.EX2,
+    DMMA, LDS, STS and BAR. Fails unless every instance keeps a loop, lane
+    shuffles up and mul7 has no FFMA (its pairs are not contracted)."""
+    import re
+    from taichi_3d_gaussian_splatting_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    libs = sorted(_build.BUILD_DIR.glob("libt3dgs_probes_*.so"))
+    if not os.path.isfile(tool) or not libs:
+        print("  S5 SASS: cuobjdump or the probe library not found",
+              flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(libs[-1])], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    instr = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+    label = re.compile(r"^\s*(\.L_x_\d+):")
+    target = re.compile(r"(\.L_x_\d+|0x[0-9a-f]+)")
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        head = block.splitlines()[0].strip()
+        mode = next((m for m, key in S5_SASS.items() if key in head), None)
+        if mode is None or mode in found:
+            continue
+        # a branch is backward when its target lies strictly before it (the
+        # self-branch after EXIT that ends every kernel is not a loop)
+        at_label, lines, backward = {}, [], 0
+        for ln in block.splitlines():
+            m = label.match(ln)
+            if m:
+                at_label[m.group(1)] = len(lines)
+                continue
+            m = instr.search(ln)
+            if not m:
+                continue
+            addr, text = int(m.group(1), 16), m.group(2).strip()
+            t = target.search(text) if "BRA" in text else None
+            if t and (at_label.get(t.group(1), len(lines)) < len(lines) or (
+                    t.group(1).startswith("0x")
+                    and int(t.group(1), 16) < addr)):
+                backward += 1
+            lines.append(text)
+        counts = {op: sum(op in ln for ln in lines)
+                  for op in ("SHFL.UP", "FFMA", "FMUL", "FADD", "MUFU.EX2",
+                             "DMMA", "LDS", "STS", "BAR")}
+        found[mode] = (len(lines), backward, counts)
+        print(f"  S5 SASS {mode} ({head[:60]}): {len(lines)} instructions, "
+              f"{backward} backward branches, {counts}", flush=True)
+    if set(found) != set(S5_SASS):
+        fail(f"S5 SASS: instances found {sorted(found)}, expected "
+             f"{sorted(S5_SASS)}")
+    for mode, (_, backward, counts) in found.items():
+        if backward < 1:
+            fail(f"S5 SASS {mode}: no backward branch (no repetition loop)")
+    if found["lane"][2]["SHFL.UP"] < 1:
+        fail("S5 SASS lane: no SHFL.UP")
+    if found["mul7"][2]["FFMA"] != 0:
+        fail(f"S5 SASS mul7: {found['mul7'][2]['FFMA']} FFMA (contracted)")
+
+
+def s5_shares(out):
+    """Shares of zeros, subnormals and infinities among out's values."""
+    import torch
+    tiny = torch.finfo(torch.float32).tiny
+    mag = out.abs()
+    n = out.numel()
+    return {"zero": float((mag == 0).sum()) / n,
+            "subnormal": float(((mag > 0) & (mag < tiny)).sum()) / n,
+            "inf": float(torch.isinf(out).sum()) / n}
+
+
+def hold_s5(label, mode, got, ref, fail):
+    """S5's kernel against its plain version: bitwise for S5_BITWISE, else
+    the same infinities and S5_TOL on the rest. Returns max |d| over the
+    finite values."""
+    import torch
+    if torch.isnan(got).any():
+        fail(f"{label}: NaN in the kernel's output")
+    if mode in S5_BITWISE:
+        if not torch.equal(got, ref):
+            fail(f"{label}: not bitwise equal to the plain version: "
+                 f"{int((got != ref).sum())} of {got.numel()} values differ, "
+                 f"max |d| {float((got - ref).abs().nan_to_num().max()):.3g}")
+        return 0.0
+    if not torch.equal(torch.isinf(got), torch.isinf(ref)):
+        fail(f"{label}: infinities differ from the plain version's")
+    finite = torch.isfinite(ref)
+    rtol, atol = S5_TOL[mode]
+    g, r = got[finite].cpu().numpy(), ref[finite].cpu().numpy()
+    np.testing.assert_allclose(g, r, rtol=rtol, atol=atol, err_msg=label)
+    return float(np.abs(g - r).max()) if g.size else 0.0
+
+
+def s5_checks(S5, ms, card, sfu_per_s, fail):
+    """S5 on the card: every run at full size (the TPU probe's input, 300
+    repetitions) and at 1-3 repetitions of uniform input against its plain
+    version, the shares of special values, the time against 30
+    repetitions, and each run's plain time and bound. Returns ({run: max
+    |d|}, {run: plain ms}, {run: work})."""
+    import torch
+    err, plain_ms, work = {}, {}, {}
+    elements = S5.NUM_PROGRAMS * 32768
+    nbytes = 2 * 4 * elements
+    for mode, shape in S5.RUNS:
+        run = f"{mode} {shape[0]}x{shape[1]}"
+        x = S5.probe_input(shape)
+        got = S5.roll_micro(x, mode=mode)
+        p_ms = time_ms(lambda: S5.roll_micro_torch(x, mode=mode), 1,
+                       warmup=0)
+        plain_ms[run] = p_ms
+        err[run] = hold_s5(f"S5 {run}", mode, got,
+                           S5.roll_micro_torch(x, mode=mode), fail)
+        for reps in S5_SHORT_REPS:
+            xr = S5.random_input(shape, seed=reps)
+            d = hold_s5(f"S5 {run} at {reps} repetitions of uniform input",
+                        mode, S5.roll_micro(xr, mode=mode, reps=reps),
+                        S5.roll_micro_torch(xr, mode=mode, reps=reps), fail)
+            err[run] = max(err[run], d)
+        short = time_ms(lambda: S5.roll_micro(x, mode=mode,
+                                              reps=S5_LOOP_REPS), 5)
+        kernel = ms[(mode, shape)]
+        if kernel / short < S5_LOOP_MIN_RATIO:
+            fail(f"S5 {run}: 300 repetitions take {kernel:.4f} ms, "
+                 f"{S5_LOOP_REPS} take {short:.4f} ms: the loop does not "
+                 f"run its trips")
+        reps_total = elements * S5.REPS
+        t_ops = reps_total * S5_OPS[mode] / PEAK_FLOPS * 1e3
+        ops = reps_total * S5_OPS[mode]
+        if mode == "exp":
+            t_ops = max(t_ops, reps_total / sfu_per_s * 1e3)
+            ops += reps_total
+        if mode in ("mxu", "mxu_t"):
+            t_ops = max(t_ops, reps_total * S5_FP64_OPS
+                        / PEAK_FP64_TENSOR_FLOPS * 1e3)
+            ops += reps_total * S5_FP64_OPS
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        work[run] = {"bytes": nbytes, "ops": ops,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"}
+        shares = s5_shares(got)
+        print(f"S5 {run}: kernel {kernel:.4f} ms "
+              f"({kernel / S5.NUM_PROGRAMS / S5.REPS * 1e6:.2f} ns a program "
+              f"and repetition), {S5_LOOP_REPS} repetitions {short:.4f} ms "
+              f"(x{kernel / short:.2f}), plain {p_ms:.4f} ms, bound "
+              f"{work[run]['bound_ms']:.4f} ms by {work[run]['bound_by']} "
+              f"({ops} operations, {nbytes} bytes; "
+              f"{work[run]['bound_ms'] / kernel:.1%} of bound), max |d| "
+              f"{err[run]:.3g} (bitwise: {mode in S5_BITWISE}); output "
+              f"shares zero {shares['zero']:.4f}, subnormal "
+              f"{shares['subnormal']:.4f}, inf {shares['inf']:.4f} ({card})",
+              flush=True)
+    return err, plain_ms, work
+
+
+def s6_checks(S6, result, card, fail):
+    """S6 on the card: the verdict (every plane bitwise, every scan exact),
+    the planes' plain time and torch.roll's, and the planes' bound. Returns
+    (plain ms, torch.roll ms, work, max |kernel - plain| of the planes)."""
+    import torch
+    verdict = S6.check(result)
+    for plane, (d_plain, d_numpy) in verdict["planes"].items():
+        print(f"S6 {plane}: max |kernel - plain| {d_plain:.3g}, max |kernel "
+              f"- numpy sequential| {d_numpy:.3g}", flush=True)
+    for draw, wrong, edges in verdict["scans"]:
+        print(f"S6 work_list_scan draw {draw}: {wrong} of "
+              f"{S6.SCAN_THREADS} threads differ from the sequential sum; "
+              f"threads {S6.EDGE_THREADS} exact: {edges}", flush=True)
+    print("S6 " + ("PASS" if verdict["pass"] else "FAIL"), flush=True)
+    if not verdict["pass"]:
+        fail(f"S6: the card's shuffles or block_exclusive_sum disagree with "
+             f"the plain versions: {verdict}")
+    x = S6.probe_input()
+    plain_ms = time_ms(lambda: S6.roll_semantics_torch(x), 20)
+    library_ms = time_ms(lambda: torch.roll(x, 1, 0), 20)
+    nbytes = 4 * 4 * S6.ROWS * S6.COLS    # x read, three planes written
+    ops = 6 * S6.ROWS * S6.COLS           # 3 products and 3 sums a value
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS * 1e3
+    work = {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    planes_ms, scan_ms = (result[m][0] for m in S6.MODES)
+    max_err = max(d for d, _ in verdict["planes"].values())
+    print(f"S6 planes: kernel {planes_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.roll {library_ms:.4f} ms, bound {work['bound_ms']:.2e} ms "
+          f"by {work['bound_by']}; work_list_scan kernel {scan_ms:.4f} ms "
+          f"({card})", flush=True)
+    return plain_ms, library_ms, work, max_err
+
+
 def probes_phase(card, fail):
     """Phase 12: the K1 probes. Builds the probe library, drives each
     probe's entry point (the timing function its `main` runs) in every
@@ -1625,15 +1851,17 @@ def probes_phase(card, fail):
     holds every mode's kernel against its plain version on the card at the
     probe's full size, S4 `full` against K1 and its plain version, and S2
     against its plain version with the exponent rounded as the kernel's
-    FP64 product rounds it, counting the decisions float32's product flips.
-    Returns the kernels line's four entries."""
+    FP64 product rounds it, counting the decisions float32's product flips;
+    then S5 and S6 (s5_checks, s6_checks). Returns the kernels line's six
+    entries."""
     import torch
     from taichi_3d_gaussian_splatting_torch.ops import _build
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.probes import _common as PC
     from taichi_3d_gaussian_splatting_torch.probes import (
         perf_exp2_probe as S1, perf_flip_proto as S2,
-        perf_kernel_ablate as S3, perf_rgb_ablate2 as S4)
+        perf_kernel_ablate as S3, perf_rgb_ablate2 as S4,
+        perf_roll_micro as S5, roll_semantics_check as S6)
 
     t0 = time.perf_counter()
     _build.load_probe_library()
@@ -1645,6 +1873,7 @@ def probes_phase(card, fail):
                                      or "Compiling" in line):
             print(f"  {line.strip()}", flush=True)
     s1_sass_summary()
+    s5_sass_summary(fail)
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -1663,16 +1892,19 @@ def probes_phase(card, fail):
     s3_kw = dict(num_tiles=S3.NUM_TILES, tiles_per_row=S3.TILES_PER_ROW)
 
     # each probe's entry point, every mode: the launches of this run only
-    for module in (S4, S1, S3, S2):
+    for module in (S4, S1, S3, S2, S5, S6):
         module.reset_launch_counts()
     ms = {f"S4 {k}": S4.time_modes(*v) for k, v in s4_in.items()}
     s1 = S1.time_variants(coef, mono)
     ms["S1"] = {v: s1[v][0] for v in S1.VARIANTS}
     ms["S3"] = S3.time_modes(*s3_in)
     ms.update({f"S2 {k}": S2.time_modes(*v) for k, v in s2_in.items()})
+    s5 = S5.time_runs()
+    s6 = S6.time_modes()
     torch.cuda.synchronize()
     launches = {name: dict(module.launch_counts) for name, module in
-                (("S4", S4), ("S1", S1), ("S3", S3), ("S2", S2))}
+                (("S4", S4), ("S1", S1), ("S3", S3), ("S2", S2), ("S5", S5),
+                 ("S6", S6))}
     print(f"probe launches during their entry points: {launches}",
           flush=True)
     for name, counts in launches.items():
@@ -1834,6 +2066,11 @@ def probes_phase(card, fail):
           f"SMs, {clock_mhz:.0f} MHz; S2 full's {work['S2 s2']['pairs']} "
           f"pairs at its layout {work['S2 s2']['pairs'] / sfu_per_s * 1e3:.4f}"
           f" ms", flush=True)
+
+    # S5 and S6: every run against its plain version, times and bounds
+    s5_err, s5_plain, s5_work = s5_checks(
+        S5, {run: v[0] for run, v in s5.items()}, card, sfu_per_s, fail)
+    s6_plain, s6_library, s6_work, s6_err = s6_checks(S6, s6, card, fail)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
     # the kernels line: each probe's `full` (S1's exp) at its main shapes
     entries = []
@@ -1852,6 +2089,23 @@ def probes_phase(card, fail):
             "plain_ms": plain_ms[plain_key],
             "bound_ms": work[key]["bound_ms"],
             "bound_by": work[key]["bound_by"], "library_ms": None})
+    # S5's lane mode (no PyTorch call computes a 300-step chain: library_ms
+    # null) and S6's planes (library_ms: torch.roll of the roll plane)
+    lane = f"lane {S5.WIDE[0]}x{S5.WIDE[1]}"
+    entries.append({
+        "name": "probe_perf_roll_micro", "route": "cuda",
+        "source": S5.SOURCE, "replaces": S5.REPLACES,
+        "launches": launches["S5"]["lane"], "max_abs_err": s5_err[lane],
+        "ms": s5[("lane", S5.WIDE)][0], "plain_ms": s5_plain[lane],
+        "bound_ms": s5_work[lane]["bound_ms"],
+        "bound_by": s5_work[lane]["bound_by"], "library_ms": None})
+    entries.append({
+        "name": "probe_roll_semantics_check", "route": "cuda",
+        "source": S6.SOURCE, "replaces": S6.REPLACES,
+        "launches": launches["S6"]["planes"], "max_abs_err": s6_err,
+        "ms": s6["planes"][0], "plain_ms": s6_plain,
+        "bound_ms": s6_work["bound_ms"], "bound_by": s6_work["bound_by"],
+        "library_ms": s6_library})
     return entries
 
 

@@ -8,10 +8,10 @@ sources (headers included) and flags, under ``csrc/build/`` (listed in
 ``.gitignore``), and loaded with ``ctypes``. A second call in the same
 process, or a later process with unchanged sources, reuses the library.
 
-The K1 ablation probes' sources (``csrc/probes/*.cu``) build the same way
-into a library of their own (``load_probe_library``), hashed over those
-sources and every header they include, so that the kernel library's name
-does not depend on them.
+The probes' sources (``csrc/probes/*.cu``) build the same way into a
+library of their own (``load_probe_library``), hashed over those sources,
+every header they include and the flags they are given, so that the
+kernel library's name does not depend on them.
 """
 
 from __future__ import annotations
@@ -146,7 +146,7 @@ def load_library():
     return _library
 
 
-# The K1 ablation probes (taichi_3d_gaussian_splatting_torch/probes/): their
+# The probes (taichi_3d_gaussian_splatting_torch/probes/): their
 # sources in csrc/probes/, built into a library of their own, so that the
 # kernel library above and its hash do not depend on them.
 PROBE_DIR = CSRC_DIR / "probes"
@@ -181,25 +181,45 @@ def _declare_probes(lib):
     fn = lib.t3dgs_probe_exp2
     fn.argtypes = [p, p, i, i, p, p]
     fn.restype = i
+    # x, programs, rows, cols, reps, mode, out, stream (perf_roll_micro.cu)
+    fn = lib.t3dgs_probe_roll_micro
+    fn.argtypes = [p, i, i, i, i, i, p, p]
+    fn.restype = i
+    # input, out, stream (roll_semantics_check.cu)
+    for name in ("t3dgs_probe_roll_planes", "t3dgs_probe_work_list_scan"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p]
+        fn.restype = i
     return lib
+
+
+def probe_digest():
+    """(sources, hash) of the probe library: csrc/probes/*.cu, and the hash
+    of those sources, every header they include, NVCC_FLAGS and the
+    SOURCE_FLAGS entries of the probe sources (a source given flags builds
+    anew)."""
+    sources = sorted(PROBE_DIR.glob("*.cu"))
+    seen = {}
+    for src in sources:
+        _included(src, seen)
+    flags = [(src.name, SOURCE_FLAGS[src.name]) for src in sources
+             if src.name in SOURCE_FLAGS]
+    digest = hashlib.sha256(repr((NVCC_FLAGS, flags)).encode())
+    for path in sorted(seen):
+        digest.update(str(path.relative_to(CSRC_DIR)).encode())
+        digest.update(path.read_bytes())
+    return sources, digest.hexdigest()[:16]
 
 
 def load_probe_library():
     """Build (if needed) and load the probes' kernel library from
     csrc/probes/*.cu; returns the CDLL. Its file name carries the hash of
-    the probe sources, every header they include and the flags."""
+    probe_digest."""
     global _probe_library, probe_build_log
     if _probe_library is not None:
         return _probe_library
-    sources = sorted(PROBE_DIR.glob("*.cu"))
-    seen = {}
-    for src in sources:
-        _included(src, seen)
-    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
-    for path in sorted(seen):
-        digest.update(str(path.relative_to(CSRC_DIR)).encode())
-        digest.update(path.read_bytes())
-    lib_path = BUILD_DIR / f"libt3dgs_probes_{digest.hexdigest()[:16]}.so"
+    sources, digest = probe_digest()
+    lib_path = BUILD_DIR / f"libt3dgs_probes_{digest}.so"
     if not lib_path.is_file():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

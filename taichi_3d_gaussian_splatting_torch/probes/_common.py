@@ -1,7 +1,7 @@
-"""What the K1 ablation probes share: the card checks and CUDA-event
-timing of their entry points, the 976x544 inputs of the port's render, and
-the plain versions' building blocks (the TPU probes' 128-key chunk walk,
-their log-doubling prefix product and scan-free saturation masks)."""
+"""What the probes share: the card checks and CUDA-event timing of their
+entry points, the 976x544 inputs of the port's render, and the plain
+versions' building blocks (the TPU probes' 128-key chunk walk, their
+log-doubling prefix scans and scan-free saturation masks)."""
 
 from __future__ import annotations
 
@@ -146,18 +146,27 @@ def launch_slab_probe(symbol, slab, tile_starts, tile_ends, *, mode_index,
     return out
 
 
-def cumprod_exclusive(x, dim):
-    """Exclusive prefix product along `dim` by the TPU probes' log-doubling
-    scan (blend_pallas.py _sub_cumprod_exclusive, roll as jnp.roll): the
-    same products in the same order, so that it rounds as they do."""
+def doubling_scan(x, dim, *, op="mul", exclusive=True):
+    """Prefix product (op "mul") or sum ("add") along `dim` by the TPU
+    probes' log-doubling scan (blend_pallas.py _sub_cumprod_exclusive /
+    _sub_cumsum_exclusive, roll as jnp.roll): for k = 1, 2, ... below the
+    length, acc = acc op (pos < k ? identity : roll(acc, k)), the same
+    operations in the same order, so that it rounds as they do. An
+    exclusive scan first shifts by one (identity at position 0); an
+    inclusive one (scratch/perf_roll_micro.py's lane and sub) does not."""
+    if op not in ("mul", "add"):
+        raise ValueError(f"op is 'mul' or 'add', got {op!r}")
+    combine = torch.mul if op == "mul" else torch.add
+    identity = torch.ones_like(x) if op == "mul" else torch.zeros_like(x)
     n = x.shape[dim]
     pos = torch.arange(n, device=x.device).view(
         [n if d == dim % x.dim() else 1 for d in range(x.dim())])
-    acc = torch.where(pos < 1, torch.ones_like(x), torch.roll(x, 1, dim))
+    acc = (torch.where(pos < 1, identity, torch.roll(x, 1, dim)) if exclusive
+           else x)
     k = 1
     while k < n:
-        acc = acc * torch.where(pos < k, torch.ones_like(acc),
-                                torch.roll(acc, k, dim))
+        acc = combine(acc, torch.where(pos < k, identity,
+                                       torch.roll(acc, k, dim)))
         k *= 2
     return acc
 

@@ -134,7 +134,7 @@ def flip_proto_torch(slab, tile_starts, tile_ends, *, mode, num_tiles,
         if mode == "no_scan":
             t_i = T[:, None] * one_minus
         else:
-            t_i = T[:, None] * C.cumprod_exclusive(one_minus, 1)
+            t_i = T[:, None] * C.doubling_scan(one_minus, 1)
         contribute, T, sat = C.saturation_masks(a_v, t_i, one_minus, T, sat)
         weight = contribute * a_v * t_i
         return {"T": T, "sat": sat,
@@ -181,7 +181,7 @@ def decision_flips(slab, tile_starts, tile_ends, *, num_tiles,
                               torch.zeros_like(a_exp))
             one_minus = 1.0 - a_v
             T, sat = st[f"T{r}"], st[f"sat{r}"]
-            t_i = T[:, None] * C.cumprod_exclusive(one_minus, 1)
+            t_i = T[:, None] * C.doubling_scan(one_minus, 1)
             hit = (a_v > 0) & (t_i * one_minus < BC.TRANSMITTANCE_SATURATION)
             # the pixel's first saturating key, as its position in the
             # tile's walk

@@ -78,7 +78,7 @@ def rgb_ablate2_torch(slab, tile_starts, tile_ends, *, mode, num_tiles,
         if mode == "no_scan":
             t_i = T[:, None] * one_minus
         else:
-            t_i = T[:, None] * C.cumprod_exclusive(one_minus, 1)
+            t_i = T[:, None] * C.doubling_scan(one_minus, 1)
         if mode == "no_sat":
             contribute, T = a_v, t_i[:, -1]
         else:

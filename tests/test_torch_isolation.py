@@ -58,9 +58,11 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.probes.perf_exp2_probe",
     "taichi_3d_gaussian_splatting_torch.probes.perf_kernel_ablate",
     "taichi_3d_gaussian_splatting_torch.probes.perf_flip_proto",
+    "taichi_3d_gaussian_splatting_torch.probes.perf_roll_micro",
+    "taichi_3d_gaussian_splatting_torch.probes.roll_semantics_check",
 ]
 PROBE_NAMES = ["perf_rgb_ablate2", "perf_exp2_probe", "perf_kernel_ablate",
-               "perf_flip_proto"]
+               "perf_flip_proto", "perf_roll_micro", "roll_semantics_check"]
 
 
 def test_port_modules_import_no_jax():
@@ -184,7 +186,7 @@ def _probes():
 
 def _probe_calls(make):
     """(module, call) per probe wrapper, its tensors made by make(tensor)."""
-    S4, S1, S3, S2 = _probes()
+    S4, S1, S3, S2, S5, S6 = _probes()
     slab = make(torch.zeros((16, 128)))
     ranges = make(torch.zeros(2, dtype=torch.int32))
     kw = dict(mode="full", num_tiles=2, tiles_per_row=2)
@@ -194,7 +196,12 @@ def _probe_calls(make):
         (S2, lambda: S2.flip_proto(slab, ranges, ranges, **kw)),
         (S1, lambda: S1.exp2_probe(make(torch.zeros((8, 128))),
                                    make(torch.zeros((256, 8))),
-                                   variant="exp"))]
+                                   variant="exp")),
+        (S5, lambda: S5.roll_micro(make(torch.zeros((1, 256, 128))),
+                                   mode="lane", reps=1)),
+        (S6, lambda: S6.roll_semantics(make(torch.zeros((8, 128))))),
+        (S6, lambda: S6.work_list_scan(
+            make(torch.zeros((1024, 2), dtype=torch.int32))))]
 
 
 @pytest.mark.parametrize("name", PROBE_NAMES)
