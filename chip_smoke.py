@@ -148,6 +148,22 @@ Phases (any failure exits non-zero; nothing is caught):
      repetitions (at least 5x less), its plain time and bound. S6: every
      plane bitwise against its plain version, each work_list_scan draw
      exactly its sequential sum (PASS), times beside torch.roll's.
+ 13. the container's entrypoint and the quickstart notebook on the card,
+     on phase 9's COLMAP capture, with `python` on PATH (a link to this
+     interpreter where there is none or another): (a) `bash
+     taichi_3d_gaussian_splatting_torch/ci/entrypoint.sh` from an empty
+     working directory with PYTHONPATH at the repository, TRAIN_CONFIG a
+     config of the capture (GATE_ITERATIONS) and the gate at
+     GATE_FLOOR_PSNR / GATE_FLOOR_SSIM, must exit 0 with the summary
+     markdown's val/psnr and val/ssim rows, and exit 1 without
+     TRAIN_CONFIG; (b) every shell command of the code cells of
+     taichi_3d_gaussian_splatting_torch/tools/run_on_cuda_quickstart.ipynb
+     but the clone cell, in order, from the repository root, with
+     /content in a temporary directory holding the capture and the written
+     train.yaml cut to QUICKSTART_CUTS (printed): it must leave a
+     best_scene.parquet, the trajectory's frames as PNGs of more than one
+     colour each, and a bench record with value > 0, backend torch-cuda
+     and its launch line. Each command's wall seconds are printed.
 
 Every phase that renders or trains checks that P1 launched once per blend
 forward (K1 or K2) and P2 once per K3 launch.
@@ -201,6 +217,10 @@ TRACE_TOLERANCE = 0.25
 # phase 9: the gate's training run and its floor
 GATE_ITERATIONS = 200
 GATE_FLOOR_PSNR = 14.0
+# phase 13 (a): the entrypoint always passes an SSIM target (default 0.8);
+# the same training reached val/ssim 0.6669 (NVIDIA H100 80GB HBM3, 700 W),
+# so its floor sits below that as phase 9's PSNR floor sits below 20.96 dB
+GATE_FLOOR_SSIM = 0.5
 KITTI_STEPS = 3
 # phase 10: the bench runs (label of phase 4's scene, environment, trains)
 BENCH_RUNS = (("430k synthetic", {}, True),
@@ -288,6 +308,19 @@ HELD_OUT_CONTROLLER = dict(
 # phase 11 (c): the render CLI's PSNR of a held-out view of the trained
 # scene against the trainer's own validation render of it
 RENDER_CLI_PSNR_ATOL_DB = 1.0
+# phase 13: the port's container entrypoint and its quickstart notebook.
+# The entrypoint trains phase 9's capture (GATE_ITERATIONS) with the gate at
+# GATE_FLOOR_PSNR and GATE_FLOOR_SSIM; the notebook's commands run in order
+# with /content in a temporary directory, the written train.yaml cut to
+# QUICKSTART_CUTS:
+# config/example.yaml's schedule is a 30,001-iteration one, and its
+# coarse-to-fine start at factor 4 would crop the capture's 64x48 views to
+# 16x0 (16-pixel tiles)
+ENTRYPOINT = "taichi_3d_gaussian_splatting_torch/ci/entrypoint.sh"
+QUICKSTART = ("taichi_3d_gaussian_splatting_torch/tools/"
+              "run_on_cuda_quickstart.ipynb")
+QUICKSTART_CUTS = {"num-iterations": GATE_ITERATIONS, "val-interval": 100,
+                   "initial-downsample-factor": 1}
 # phase 12: the K1 probes (taichi_3d_gaussian_splatting_torch/probes/).
 # Float operations a (pixel, key) pair takes by what the key does to the
 # pixel (skipped, saturating, contributing), counted from the sources as
@@ -1305,6 +1338,16 @@ def run_bench(label, knobs, trains, fail):
         [sys.executable, "-m", "taichi_3d_gaussian_splatting_torch.bench"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     seconds = time.perf_counter() - t0
+    record, launches = check_bench_output(label, proc, trains, fail)
+    return record, launches, proc.stderr, seconds
+
+
+def check_bench_output(label, proc, trains, fail):
+    """The bench's finished process `proc` (text output) held to exit 0, a
+    record of every key with value > 0, backend torch-cuda and the
+    dropped-work counters 0, and its stderr launch line to the launches of
+    BENCH_MIN_LAUNCHES (the render's kernels, and the training's where it
+    `trains`). Returns (record, launches)."""
     if proc.returncode != 0:
         fail(f"bench [{label}] exited {proc.returncode}:\n"
              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
@@ -1328,7 +1371,7 @@ def run_bench(label, knobs, trains, fail):
              if (trains or k in BENCH_RENDER_KERNELS) and launches[k] < v}
     if short:
         fail(f"bench [{label}]: too few launches {short} of {launches}")
-    return record, launches, proc.stderr, seconds
+    return record, launches
 
 
 def bench_phase(phase4_ms, fail):
@@ -2109,6 +2152,204 @@ def probes_phase(card, fail):
     return entries
 
 
+def python_on_path(root):
+    """The environment for phase 13's shell commands, which call `python`
+    as a user's shell does: where `python` on PATH is not this interpreter
+    (or there is none), a `python` link to sys.executable in `root`/bin goes
+    first on PATH, and the phase says so."""
+    import shutil
+    env = dict(os.environ)
+    found = shutil.which("python")
+    if found and os.path.realpath(found) == os.path.realpath(sys.executable):
+        print(f"container: `python` on PATH is {found}", flush=True)
+        return env
+    bin_dir = os.path.join(root, "bin")
+    os.makedirs(bin_dir)
+    os.symlink(sys.executable, os.path.join(bin_dir, "python"))
+    env["PATH"] = bin_dir + os.pathsep + env.get("PATH", "")
+    print(f"container: `python` on PATH was {found}; linked "
+          f"{bin_dir}/python -> {sys.executable} for the subprocesses",
+          flush=True)
+    return env
+
+
+def notebook_commands(path):
+    """The shell commands of the notebook's code cells after the first (the
+    clone cell), in order: each `!` line with its `\\` continuations
+    joined. Any other line in those cells is refused."""
+    with open(path) as f:
+        nb = json.load(f)
+    code_cells = [c for c in nb["cells"] if c["cell_type"] == "code"]
+    commands = []
+    for cell in code_cells[1:]:
+        source = "".join(cell["source"]).replace("\\\n", " ")
+        for line in source.splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            if not line.startswith("!"):
+                raise ValueError(f"{path}: not a shell command: {line!r}")
+            commands.append(" ".join(line[1:].split()))
+    return commands
+
+
+def command_name(command):
+    """The script or module a `python` shell command runs, without its
+    package or suffix (tools/prepare_colmap.py -> prepare_colmap)."""
+    tokens = command.split()
+    i = tokens.index("python") + 1
+    target = tokens[i + 1] if tokens[i] == "-m" else tokens[i]
+    return os.path.basename(target).removesuffix(".py").rsplit(".", 1)[-1]
+
+
+def run_timed(label, argv, **kw):
+    """`argv` in a subprocess, its output captured as text; prints its wall
+    seconds and exit code beside `label` and returns (process, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, **kw)
+    seconds = time.perf_counter() - t0
+    print(f"  [{seconds:6.1f} s] exit {proc.returncode}: {label}", flush=True)
+    return proc, seconds
+
+
+def entrypoint_phase(root, images, sparse, env, card, fail):
+    """Phase 13 (a): bash ENTRYPOINT from an empty working directory with
+    PYTHONPATH at the repository and TRAIN_CONFIG a config of phase 9's
+    capture (`images`, the COLMAP model `sparse`; GATE_ITERATIONS on the
+    card, the gate at GATE_FLOOR_PSNR and GATE_FLOOR_SSIM): exit 0,
+    "quality gate passed", and the summary markdown with its val/psnr and
+    val/ssim rows. Without TRAIN_CONFIG: exit 1 and its message."""
+    import yaml
+    from torch_capture_fixtures import colmap_train_config
+    work = os.path.join(root, "work")
+    os.makedirs(work)
+    dataset = os.path.join(root, "dataset")
+    subprocess.run([sys.executable, os.path.join(REPO, "tools",
+                                                 "prepare_colmap.py"),
+                    "--base_path", sparse, "--image_path", images,
+                    "--output_dir", dataset, "--val_every", "5"],
+                   check=True, timeout=300, capture_output=True)
+    config = os.path.join(root, "train.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(colmap_train_config(root, dataset, GATE_ITERATIONS), f)
+    summary = os.path.join(root, "summary.md")
+    env = dict(env, PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
+    env.pop("TRAIN_CONFIG", None)
+    argv = ["bash", os.path.join(REPO, ENTRYPOINT)]
+    proc, gate_s = run_timed(
+        f"TRAIN_CONFIG=<phase 9's capture> bash {ENTRYPOINT}", argv,
+        cwd=work, timeout=600,
+        env=dict(env, TRAIN_CONFIG=config, OUTPUT_SUMMARY=summary,
+                 TARGET_PSNR=str(GATE_FLOOR_PSNR),
+                 TARGET_SSIM=str(GATE_FLOOR_SSIM)))
+    if proc.returncode != 0 or "quality gate passed" not in proc.stdout:
+        fail(f"the entrypoint exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(summary) as f:
+        markdown = f.read()
+    rows = {line.split("|")[1].strip(): line for line in markdown.splitlines()
+            if line.startswith("| val/")}
+    if (not markdown.startswith("# Experiment results")
+            or not {"val/psnr", "val/ssim"} <= set(rows)):
+        fail(f"the entrypoint's summary lacks the gate's rows:\n{markdown}")
+    linked = os.path.islink(os.path.join(work, "data"))
+    if linked != os.path.isdir("/data"):
+        fail(f"the entrypoint's data link: {linked}, /data a directory: "
+             f"{os.path.isdir('/data')}")
+    bare, bare_s = run_timed(f"bash {ENTRYPOINT} (no TRAIN_CONFIG)", argv,
+                             cwd=work, env=env, timeout=60)
+    if bare.returncode != 1 or "TRAIN_CONFIG is not set" not in bare.stderr:
+        fail(f"the entrypoint without TRAIN_CONFIG exited "
+             f"{bare.returncode}: {bare.stderr[-500:]}")
+    print(f"container (a) entrypoint: exit 0 in {gate_s:.1f} s "
+          f"({GATE_ITERATIONS} iterations, TARGET_PSNR {GATE_FLOOR_PSNR}, "
+          f"TARGET_SSIM {GATE_FLOOR_SSIM}); summary {rows['val/psnr']} "
+          f"{rows['val/ssim']}; data link {linked}; without TRAIN_CONFIG "
+          f"exit 1 in {bare_s:.1f} s ({card})", flush=True)
+
+
+def quickstart_phase(content, env, card, fail):
+    """Phase 13 (b): every shell command of QUICKSTART's code cells but the
+    clone cell, in order, from the repository root, with /content replaced
+    by `content`, which holds phase 9's capture (colmap/sparse/0, images);
+    the train.yaml the notebook writes is cut to QUICKSTART_CUTS. Checks
+    the trained best_scene.parquet, the trajectory's PNG frames (decoded,
+    none of one colour) and the bench's record and launch line."""
+    import PIL.Image
+    import yaml
+    train_yaml = os.path.join(content, "train.yaml")
+    bench = cut = None
+    timings = []
+    for command in notebook_commands(os.path.join(REPO, QUICKSTART)):
+        command = command.replace("/content", content)
+        proc, seconds = run_timed(command.replace(content, "<content>"),
+                                  ["bash", "-c", command], cwd=REPO,
+                                  env=env, timeout=600)
+        if proc.returncode != 0:
+            fail(f"quickstart command exited {proc.returncode}: {command}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        timings.append((command_name(command), seconds))
+        if "taichi_3d_gaussian_splatting_torch.bench" in command:
+            bench = proc
+        if cut is None and os.path.exists(train_yaml):
+            with open(train_yaml) as f:
+                config = yaml.safe_load(f)
+            cut = {k: (config[k], v) for k, v in QUICKSTART_CUTS.items()}
+            config.update(QUICKSTART_CUTS)
+            with open(train_yaml, "w") as f:
+                yaml.safe_dump(config, f)
+            print("  train.yaml cut: " + ", ".join(
+                f"{k} {old} -> {new}" for k, (old, new) in cut.items()),
+                flush=True)
+    data = os.path.join(content, "data")
+    scene = os.path.join(data, "best_scene.parquet")
+    if not os.path.isfile(scene):
+        fail(f"the quickstart's training wrote no {scene}")
+    frames = sorted(f for f in os.listdir(os.path.join(content, "frames"))
+                    if f.endswith(".png"))
+    poses = np.load(os.path.join(content, "ellipse_poses.npy"))
+    if len(frames) != len(poses):
+        fail(f"the quickstart rendered {len(frames)} frames of "
+             f"{len(poses)} poses")
+    colours = []
+    for name in frames:
+        frame = np.asarray(PIL.Image.open(os.path.join(content, "frames",
+                                                       name)), np.int64)
+        colours.append(len(np.unique((frame[..., 0] << 16)
+                                     | (frame[..., 1] << 8)
+                                     | frame[..., 2])))
+    if min(colours) < 2:
+        fail(f"a quickstart frame is of one colour: {colours}")
+    if bench is None:
+        fail("the quickstart ran no bench")
+    record, launches = check_bench_output("quickstart", bench, True, fail)
+    print(f"container (b) quickstart: {len(timings)} commands, wall s "
+          + ", ".join(f"{name} {s:.1f}" for name, s in timings)
+          + f"; {os.path.getsize(scene)} B best_scene.parquet; "
+          f"{len(frames)} frames of {frame.shape[1]}x{frame.shape[0]}, "
+          f"{min(colours)}-{max(colours)} colours a frame; bench "
+          f"{json.dumps(record)}; launches {launches} ({card})", flush=True)
+
+
+def container_phase(root, card, fail):
+    """Phase 13: phase 9's capture rendered on the card where the
+    quickstart expects it, then entrypoint_phase and quickstart_phase, with
+    `python` on PATH (python_on_path); prints the phase's wall seconds."""
+    from torch_capture_fixtures import write_colmap_capture
+    t0 = time.perf_counter()
+    env = python_on_path(root)
+    content = os.path.join(root, "content")
+    images, sparse = write_colmap_capture(content, "cuda")
+    model = os.path.join(content, "colmap", "sparse", "0")
+    os.makedirs(os.path.dirname(model))
+    os.rename(sparse, model)
+    entrypoint_phase(os.path.join(root, "entrypoint"), images, model, env,
+                     card, fail)
+    quickstart_phase(content, env, card, fail)
+    print(f"container phase: {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+
+
 def main():
     import torch
 
@@ -2599,6 +2840,10 @@ def main():
         trained_scene_phase(held_out, logs, card, fail)
     # ---- 12. the K1 probes ----------------------------------------------
     probe_entries = probes_phase(card, fail)
+    # ---- 13. the container entrypoint and the quickstart notebook -------
+    torch.cuda.empty_cache()   # the subprocesses need the card's memory
+    with tempfile.TemporaryDirectory() as tmp:
+        container_phase(tmp, card, fail)
     launches["blend_backward"] = train_launches["blend_backward"]
     launches["project_backward"] = train_launches["project_backward"]
 

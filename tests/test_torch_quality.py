@@ -54,12 +54,16 @@ torch.set_num_threads(1)
 SIZE = 32
 ITERATIONS = 161
 FIRST_DENSIFY = 40
+# the static-shape budgets of the JAX test's rasterizer config
+JAX_TEST_BUDGETS = dict(max_tiles_per_point=16, big_point_divisor=4)
+# budgets under which the JAX rasterizer drops no key
+NO_DROP_BUDGETS = dict(big_point_divisor=1, mid_point_divisor=1)
 # the parity settings of the module docstring, for both trainers
 PARITY = dict(
     cache_dataset_on_device=False, log_loss_interval=1,
     log_metrics_interval=1, val_interval=80,
     raster=dict(depth_to_sort_key_scale=Q.TIE_FREE_KEY_SCALE,
-                big_point_divisor=1, mid_point_divisor=1))
+                **NO_DROP_BUDGETS))
 
 # Per-iteration train/loss before the first draw: the two trainers run the
 # same float32 operations in other orders (measured up to 5.1e-5).
@@ -82,15 +86,17 @@ VALID_POINTS_RTOL = 0.15
 INIT_MARGIN_DB = 18.0 - 12.26
 
 
-def jax_renderer(depth_key_scale):
+def jax_renderer(depth_key_scale, **budgets):
     """A `render_factory` for Q.write_dataset through the JAX rasterizer
-    with the JAX test's config (the sort buckets aside), jitted per
-    camera."""
+    with the JAX test's config (the sort buckets aside; `budgets` replaces
+    its static-shape budgets), jitted per camera."""
+    budgets = {**JAX_TEST_BUDGETS, **budgets}
+
     def factory(pc, feats):
         n = pc.shape[0]
         cfg = JRasterizerConfig(near_plane=Q.NEAR, far_plane=Q.FAR,
-                                max_tiles_per_point=16, big_point_divisor=4,
-                                depth_to_sort_key_scale=depth_key_scale)
+                                depth_to_sort_key_scale=depth_key_scale,
+                                **budgets)
         arrays = (jnp.asarray(pc), jnp.asarray(feats),
                   jnp.zeros((n,), jnp.int8), jnp.zeros((n,), jnp.int32))
         compiled = {}
@@ -108,23 +114,27 @@ def jax_renderer(depth_key_scale):
     return factory
 
 
-def write_datasets(root):
-    """The recipe's 32x32 dataset twice under `root`: jax/ rendered by the
-    JAX rasterizer, port/ by the port's, both in tie-free buckets."""
+def write_datasets(root, size=SIZE, **jax_budgets):
+    """The recipe's dataset at `size` x `size` twice under `root`: jax/
+    rendered by the JAX rasterizer (with `jax_budgets` replacing the JAX
+    test's budgets), port/ by the port's, both in tie-free buckets."""
     Q.write_dataset(os.path.join(root, "jax"),
-                    jax_renderer(Q.TIE_FREE_KEY_SCALE), size=SIZE)
+                    jax_renderer(Q.TIE_FREE_KEY_SCALE, **jax_budgets),
+                    size=size)
     Q.write_dataset(os.path.join(root, "port"),
                     Q.port_renderer("cpu",
                                     depth_key_scale=Q.TIE_FREE_KEY_SCALE),
-                    size=SIZE)
+                    size=size)
     return root
 
 
-def _config(root, package, num_iterations, seed):
+def _config(root, package, num_iterations, seed, over):
+    """The recipe's config with the parity settings, then `over` (top-level
+    keys; its controller / scene dicts update those sections)."""
     return Q.quality_config(
         os.path.join(root, package), num_iterations, seed=seed,
         summary_writer_log_dir=os.path.join(root, f"{package}_logs_{seed}"),
-        **PARITY)
+        **{**PARITY, **over})
 
 
 def _optax_lr(optimizer, state, base_lr):
@@ -143,10 +153,12 @@ def _optax_lr(optimizer, state, base_lr):
     return base_lr * float(at_count.reshape(-1)[0] / at_zero.reshape(-1)[0])
 
 
-def run_jax(root, num_iterations, seed=0):
-    """The JAX trainer on root/jax; returns (metrics records, the SH band
-    and the position learning rate each step ran with)."""
-    d = _config(root, "jax", num_iterations, seed)
+def run_jax(root, num_iterations, seed=0, shapes=None, **over):
+    """The JAX trainer on root/jax with the config overrides `over`;
+    returns (metrics records, the SH band and the position learning rate
+    each step ran with). Appends each step's image shape to `shapes` when
+    given."""
+    d = _config(root, "jax", num_iterations, seed, over)
     trainer = JT.GaussianPointCloudTrainer(jconfig.from_dict(JT.TrainConfig,
                                                              d))
     bands, position_states = [], []
@@ -160,6 +172,8 @@ def run_jax(root, num_iterations, seed=0):
             #  sh_band, intrinsics)
             position_states.append(args[2])
             bands.append(int(args[7]))
+            if shapes is not None:
+                shapes.append(tuple(args[4].shape))
             return step(*args)
         return recorded
 
@@ -170,12 +184,14 @@ def run_jax(root, num_iterations, seed=0):
     return Q.read_metrics(d["summary_writer_log_dir"]), bands, lrs
 
 
-def run_port(root, num_iterations, seed=0, sample_from_gaussian=None):
-    """The port's trainer on root/port on the CPU (densify drawing through
-    `sample_from_gaussian` when given); returns (metrics records, the SH
-    band and the position learning rate each step ran with, the held-out
-    PSNR of the initial scene)."""
-    d = _config(root, "port", num_iterations, seed)
+def run_port(root, num_iterations, seed=0, sample_from_gaussian=None,
+             shapes=None, **over):
+    """The port's trainer on root/port on the CPU with the config overrides
+    `over` (densify drawing through `sample_from_gaussian` when given);
+    returns (metrics records, the SH band and the position learning rate
+    each step ran with, the held-out PSNR of the initial scene). Appends
+    each step's image shape to `shapes` when given."""
+    d = _config(root, "port", num_iterations, seed, over)
     trainer = TT.GaussianPointCloudTrainer(
         tconfig.from_dict(TT.TrainConfig, d), device="cpu")
     init_psnr = Q.held_out_psnr(trainer.scene, trainer.val_dataset,
@@ -185,6 +201,8 @@ def run_port(root, num_iterations, seed=0, sample_from_gaussian=None):
 
     def recorded_step(image, q, t, sh_band, camera_info, *rest, **kw):
         bands.append(sh_band)
+        if shapes is not None:
+            shapes.append(tuple(image.shape))
         return step(image, q, t, sh_band, camera_info, *rest, **kw)
 
     decay_lr = TT.exponential_decay_lr
