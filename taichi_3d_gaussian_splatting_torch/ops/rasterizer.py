@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from ..camera import CameraInfo, TILE_WIDTH, TILE_HEIGHT
+from ..utils.profiling import _no_mark, span
 from . import blend_cuda as BC
 from .projection_cuda import project_points
 from .tiling import bin_points_to_tiles
@@ -151,30 +152,28 @@ def _resolve_slab_format(config: RasterizerConfig) -> str:
     return config.slab_format
 
 
-def _no_mark(stage: str):
-    pass
-
-
 def _project_and_bin(pointcloud, pointcloud_features, point_invalid_mask,
                      point_object_id, q_pointcloud_camera,
                      t_pointcloud_camera, camera_info, config, color_sh_mask,
                      object_edit=None, slab_format="wide16", mark=_no_mark):
-    """Projection, then binning; `mark(stage)` is called after each (a
-    timing hook, see `rasterize_with_vjp`). Returns (attrs, the blend's
-    nine input columns (u, v, a, b, c, logw, r, g, b), depth, binning)."""
-    q_cam, t_cam = inverse_SE3_qt(q_pointcloud_camera, t_pointcloud_camera)
-    attrs, cols = project_points(
-        pointcloud, pointcloud_features, point_invalid_mask, point_object_id,
-        q_cam, t_cam, t_pointcloud_camera, camera_info,
-        config.near_plane, config.far_plane, color_sh_mask,
-        object_edit=object_edit)
-    mark("projection")
-    binning = bin_points_to_tiles(
-        attrs.u, attrs.v, attrs.depth, attrs.radius_x, attrs.radius_y,
-        attrs.emit, camera_info,
-        depth_to_sort_key_scale=config.depth_to_sort_key_scale,
-        attr_cols=cols + (attrs.depth,), slab_format=slab_format)
-    mark("binning")
+    """Projection, then binning, each a span that calls `mark(stage)` when
+    it ends (a timing hook, see `rasterize_with_vjp`). Returns (attrs, the
+    blend's nine input columns (u, v, a, b, c, logw, r, g, b), depth,
+    binning)."""
+    with span("projection", mark):
+        q_cam, t_cam = inverse_SE3_qt(q_pointcloud_camera,
+                                      t_pointcloud_camera)
+        attrs, cols = project_points(
+            pointcloud, pointcloud_features, point_invalid_mask,
+            point_object_id, q_cam, t_cam, t_pointcloud_camera, camera_info,
+            config.near_plane, config.far_plane, color_sh_mask,
+            object_edit=object_edit)
+    with span("binning", mark):
+        binning = bin_points_to_tiles(
+            attrs.u, attrs.v, attrs.depth, attrs.radius_x, attrs.radius_y,
+            attrs.emit, camera_info,
+            depth_to_sort_key_scale=config.depth_to_sort_key_scale,
+            attr_cols=cols + (attrs.depth,), slab_format=slab_format)
     return attrs, cols, attrs.depth, binning
 
 
@@ -287,31 +286,40 @@ def rasterize(
     color_sh_mask=None,                 # optional (16,) band curriculum mask
     object_edit=None,                   # optional (q (K,4), s (K,3), t (K,3))
     #   per-object scene-editing transform (see ops/projection.py)
+    mark=_no_mark,
 ) -> RasterizeResult:
-    """Render one view on the device of `pointcloud`.
+    """Render one view on the device of `pointcloud`, in the span `frame`.
 
     With `config.rgb_only` the blend skips depth, count and last-key
     bookkeeping (those outputs are zeros) and reads the slab of
     `config.slab_format`; the image then carries no gradient. Otherwise it
     returns depth and count too, from the exact wide16 slab, and the image
     is differentiable with respect to `pointcloud` and
-    `pointcloud_features`."""
-    camera_info.validate()
-    slab_format = (_resolve_slab_format(config) if config.rgb_only
-                   else "wide16")
-    attrs, cols, _, binning = _project_and_bin(
-        pointcloud, pointcloud_features, point_invalid_mask, point_object_id,
-        q_pointcloud_camera, t_pointcloud_camera, camera_info, config,
-        color_sh_mask, object_edit=object_edit, slab_format=slab_format)
-    grid = TileGrid.from_camera(camera_info)
-    if config.rgb_only:
-        tile_out = BC.blend_forward(
-            binning.point_data, binning.tile_starts, binning.tile_ends,
-            num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row,
-            rgb_only=True)
-    else:
-        tile_out = _Blend.apply(binning, grid, pointcloud.shape[0], *cols)
-    return _result_from_tile_out(tile_out, attrs, binning, camera_info)
+    `pointcloud_features`. `mark(stage)` is called after "projection",
+    "binning" and "forward blend", as in `rasterize_with_vjp`."""
+    with span("frame"):
+        camera_info.validate()
+        slab_format = (_resolve_slab_format(config) if config.rgb_only
+                       else "wide16")
+        attrs, cols, _, binning = _project_and_bin(
+            pointcloud, pointcloud_features, point_invalid_mask,
+            point_object_id, q_pointcloud_camera, t_pointcloud_camera,
+            camera_info, config, color_sh_mask, object_edit=object_edit,
+            slab_format=slab_format, mark=mark)
+        grid = TileGrid.from_camera(camera_info)
+        with span("forward blend", mark):
+            if config.rgb_only:
+                tile_out = BC.blend_forward(
+                    binning.point_data, binning.tile_starts,
+                    binning.tile_ends, num_tiles=grid.num_tiles,
+                    tiles_per_row=grid.tiles_per_row, rgb_only=True)
+            else:
+                tile_out = _Blend.apply(binning, grid, pointcloud.shape[0],
+                                        *cols)
+            with span("forward blend/layout"):
+                result = _result_from_tile_out(tile_out, attrs, binning,
+                                               camera_info)
+    return result
 
 
 def rasterize_with_vjp(
@@ -328,7 +336,8 @@ def rasterize_with_vjp(
 
     `mark(stage)` is called after each stage ("projection", "binning",
     "forward blend"; in vjp_fn "backward blend", "routing", "projection
-    backward"), so that a caller can time them on the device."""
+    backward"), so that a caller can time them on the device; each stage
+    is a span of that name (`utils/profiling.py`)."""
     camera_info.validate()
     if config.rgb_only:
         config = dataclasses.replace(config, rgb_only=False)
@@ -341,22 +350,24 @@ def rasterize_with_vjp(
             q_pointcloud_camera, t_pointcloud_camera, camera_info, config,
             color_sh_mask, mark=mark)
     grid = TileGrid.from_camera(camera_info)
-    tile_out, last = BC.blend_forward_with_last(
-        binning.point_data, binning.tile_starts, binning.tile_ends,
-        num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row)
-    result = _result_from_tile_out(tile_out, attrs, binning, camera_info)
-    mark("forward blend")
+    with span("forward blend", mark):
+        tile_out, last = BC.blend_forward_with_last(
+            binning.point_data, binning.tile_starts, binning.tile_ends,
+            num_tiles=grid.num_tiles, tiles_per_row=grid.tiles_per_row)
+        with span("forward blend/layout"):
+            result = _result_from_tile_out(tile_out, attrs, binning,
+                                           camera_info)
 
     def vjp_fn(g_image):
-        grad_data, mag_tiles = _backward_blend(tile_out, last, g_image,
-                                               binning, grid)
-        mark("backward blend")
-        cotangents, stats = _route_to_points(grad_data, mag_tiles, binning,
-                                             grid, n)
-        mark("routing")
-        grad_pc, grad_feats = torch.autograd.grad(cols, (pc, feats),
-                                                  cotangents)
-        mark("projection backward")
+        with span("backward blend", mark):
+            grad_data, mag_tiles = _backward_blend(tile_out, last, g_image,
+                                                   binning, grid)
+        with span("routing", mark):
+            cotangents, stats = _route_to_points(grad_data, mag_tiles,
+                                                 binning, grid, n)
+        with span("projection backward", mark):
+            grad_pc, grad_feats = torch.autograd.grad(cols, (pc, feats),
+                                                      cotangents)
         return grad_pc, grad_feats, stats
 
     return result, vjp_fn

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..camera import CameraInfo, TILE_WIDTH, TILE_HEIGHT
+from ..utils.profiling import span
 
 # float bbox bounds are clamped into this range before the int32 cast, so
 # that a huge (but finite) extent saturates instead of wrapping
@@ -151,7 +152,9 @@ def bin_points_to_tiles(
 
     attr_cols: optional 10 per-point columns; when given, the result
     carries `point_data`, the blend slab in `slab_format` (see
-    `blend_slab`)."""
+    `blend_slab`). Its stages are the spans `binning/emission` (around
+    `binning/key count read`, where the host waits for the key count),
+    `binning/sort` and `binning/gather`."""
     u, v, depth = u.detach(), v.detach(), depth.detach()
     radius_x, radius_y = radius_x.detach(), radius_y.detach()
     device = u.device
@@ -160,42 +163,46 @@ def bin_points_to_tiles(
     tiles_x = camera_info.camera_width // TILE_WIDTH
     depth_bits = depth_bits_for(num_tiles)
 
-    min_u, max_u, min_v, max_v = tile_bbox(u, v, radius_x, radius_y,
-                                           camera_info)
-    dv = max_v - min_v
-    count = torch.where(in_frustum, (max_u - min_u) * dv,
-                        torch.zeros_like(dv))
-    # truncation toward zero then clip == clip then floor, for every
-    # finite depth; clamping first keeps the int cast defined
-    depth_q = torch.clamp(depth * depth_to_sort_key_scale, 0.0,
-                          float((1 << depth_bits) - 1)).to(torch.int32)
+    with span("binning/emission"):
+        min_u, max_u, min_v, max_v = tile_bbox(u, v, radius_x, radius_y,
+                                               camera_info)
+        dv = max_v - min_v
+        count = torch.where(in_frustum, (max_u - min_u) * dv,
+                            torch.zeros_like(dv))
+        # truncation toward zero then clip == clip then floor, for every
+        # finite depth; clamping first keeps the int cast defined
+        depth_q = torch.clamp(depth * depth_to_sort_key_scale, 0.0,
+                              float((1 << depth_bits) - 1)).to(torch.int32)
 
-    # ---- exact emission: key j of point i is its slot s = j - first[i] ---
-    ends = torch.cumsum(count, 0, dtype=torch.int64)
-    total = int(ends[-1]) if n else 0
-    point_of_key = torch.repeat_interleave(
-        torch.arange(n, device=device), count.long(), output_size=total)
-    first = ends - count
-    slot = torch.arange(total, device=device) - first[point_of_key]
-    dv_k = dv.long()[point_of_key]
-    du_idx = torch.div(slot, dv_k, rounding_mode="floor")   # tile_u outer
-    dv_idx = slot - du_idx * dv_k                            # tile_v inner
-    tile = ((min_v.long()[point_of_key] + dv_idx) * tiles_x
-            + min_u.long()[point_of_key] + du_idx)
-    key = ((tile << depth_bits) | depth_q.long()[point_of_key]).to(
-        torch.int32)
+        # ---- exact emission: key j of point i is its slot j - first[i] --
+        ends = torch.cumsum(count, 0, dtype=torch.int64)
+        with span("binning/key count read"):
+            total = int(ends[-1]) if n else 0
+        point_of_key = torch.repeat_interleave(
+            torch.arange(n, device=device), count.long(), output_size=total)
+        first = ends - count
+        slot = torch.arange(total, device=device) - first[point_of_key]
+        dv_k = dv.long()[point_of_key]
+        du_idx = torch.div(slot, dv_k, rounding_mode="floor")  # tile_u outer
+        dv_idx = slot - du_idx * dv_k                           # tile_v inner
+        tile = ((min_v.long()[point_of_key] + dv_idx) * tiles_x
+                + min_u.long()[point_of_key] + du_idx)
+        key = ((tile << depth_bits) | depth_q.long()[point_of_key]).to(
+            torch.int32)
 
-    sorted_key, order = torch.sort(key, stable=True)
-    sorted_point_idx = point_of_key[order].to(torch.int32)
+    with span("binning/sort"):
+        sorted_key, order = torch.sort(key, stable=True)
+        sorted_point_idx = point_of_key[order].to(torch.int32)
 
-    boundaries = (torch.arange(num_tiles + 1, device=device,
-                               dtype=torch.int32) << depth_bits)
-    edges = torch.searchsorted(sorted_key, boundaries, side="left").to(
-        torch.int32)
+        boundaries = (torch.arange(num_tiles + 1, device=device,
+                                   dtype=torch.int32) << depth_bits)
+        edges = torch.searchsorted(sorted_key, boundaries, side="left").to(
+            torch.int32)
 
     point_data = None
     if attr_cols is not None:
-        point_data = blend_slab(attr_cols, sorted_point_idx, slab_format)
+        with span("binning/gather"):
+            point_data = blend_slab(attr_cols, sorted_point_idx, slab_format)
     zero = torch.zeros((), dtype=torch.int32, device=device)
     return TileBinning(
         sorted_key=sorted_key,

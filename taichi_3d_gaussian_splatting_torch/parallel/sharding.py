@@ -33,6 +33,7 @@ from ..ops.sh import feature_sh_band_mask
 from ..training.controller import ControllerState, update_stats
 from ..training.loss import LossFunction
 from ..training.ssim import psnr as psnr_fn
+from ..utils.profiling import span
 
 
 class Mesh(NamedTuple):
@@ -92,7 +93,7 @@ def make_data_parallel_train_step(
     `mark(stage)` is called after each stage of each view (those of
     `rasterize_with_vjp`, "loss" and "accumulate": the controller
     statistics and the running sums), after "allreduce" and after
-    "adam".
+    "adam"; each stage is a span of that name (`utils/profiling.py`).
     """
     from ..training.trainer import (_grad_group_scale, contain_gradients,
                                     keep_if_ok, normalize_quaternions,
@@ -142,64 +143,65 @@ def make_data_parallel_train_step(
             view = view_gradients(scene, feats, images[i], qs[i], ts[i], cam,
                                   raster_config, loss_fn, scale, band_mask,
                                   mark)
-            aux = view.result.aux
-            # the controller takes each view's raw position gradient
-            ctrl = update_stats(ctrl, view.stats, view.grad_pc,
-                                aux.in_frustum)
-            grad_pc = grad_pc + view.grad_pc
-            grad_feats = grad_feats + view.grad_feats
-            float_sums.append(torch.stack([
-                view.loss, view.l1, view.ssim_loss,
-                psnr_fn(view.image, images[i])]))
-            count_sums.append(torch.stack([aux.total_keys,
-                                           aux.nonfinite_points]).long())
-            mark("accumulate")
+            with span("accumulate", mark):
+                aux = view.result.aux
+                # the controller takes each view's raw position gradient
+                ctrl = update_stats(ctrl, view.stats, view.grad_pc,
+                                    aux.in_frustum)
+                grad_pc = grad_pc + view.grad_pc
+                grad_feats = grad_feats + view.grad_feats
+                float_sums.append(torch.stack([
+                    view.loss, view.l1, view.ssim_loss,
+                    psnr_fn(view.image, images[i])]))
+                count_sums.append(torch.stack([
+                    aux.total_keys, aux.nonfinite_points]).long())
 
-        # sums over the views of every rank
-        grad_pc = all_sum(grad_pc)
-        grad_feats = all_sum(grad_feats)
-        ctrl = ControllerState(*(old + all_sum(new - old)
-                                 for old, new in zip(ctrl_state, ctrl)))
-        loss_mean, l1_mean, ssim_mean, psnr_mean = (
-            all_sum(torch.stack(float_sums).sum(0)) / b).unbind()
-        total_keys, nonfinite_points = all_sum(
-            torch.stack(count_sums).sum(0)).unbind()
+        with span("allreduce", mark):
+            # sums over the views of every rank
+            grad_pc = all_sum(grad_pc)
+            grad_feats = all_sum(grad_feats)
+            ctrl = ControllerState(*(old + all_sum(new - old)
+                                     for old, new in zip(ctrl_state, ctrl)))
+            loss_mean, l1_mean, ssim_mean, psnr_mean = (
+                all_sum(torch.stack(float_sums).sum(0)) / b).unbind()
+            total_keys, nonfinite_points = all_sum(
+                torch.stack(count_sums).sum(0)).unbind()
 
-        # densify inputs and image maps of the batch's last view (the
-        # reference's trigger-frame semantics), from the last rank
-        stats = view.stats
-        densify_inputs = (
-            BackwardStats(
-                grad_viewspace=from_last_rank(stats.grad_viewspace),
-                magnitude_grad_viewspace=from_last_rank(
-                    stats.magnitude_grad_viewspace),
-                num_affected_pixels=from_last_rank(stats.num_affected_pixels),
-                magnitude_grad_viewspace_on_image=torch.zeros(
-                    (1, 1, 2), device=dev)),
-            from_last_rank(aux.in_frustum.to(torch.uint8)).bool(),
-            from_last_rank(aux.point_depth),
-            from_last_rank(aux.point_uv))
-        maps = (from_last_rank(view.image),
-                from_last_rank(view.result.depth),
-                from_last_rank(view.result.pixel_valid_point_count.to(
-                    torch.float32)))
-        mark("allreduce")
+            # densify inputs and image maps of the batch's last view (the
+            # reference's trigger-frame semantics), from the last rank
+            stats = view.stats
+            densify_inputs = (
+                BackwardStats(
+                    grad_viewspace=from_last_rank(stats.grad_viewspace),
+                    magnitude_grad_viewspace=from_last_rank(
+                        stats.magnitude_grad_viewspace),
+                    num_affected_pixels=from_last_rank(
+                        stats.num_affected_pixels),
+                    magnitude_grad_viewspace_on_image=torch.zeros(
+                        (1, 1, 2), device=dev)),
+                from_last_rank(aux.in_frustum.to(torch.uint8)).bool(),
+                from_last_rank(aux.point_depth),
+                from_last_rank(aux.point_uv))
+            maps = (from_last_rank(view.image),
+                    from_last_rank(view.result.depth),
+                    from_last_rank(view.result.pixel_valid_point_count.to(
+                        torch.float32)))
 
-        # containment after the sums, as in the single-view step
-        grad_pc, grad_feats, nonfinite_grad_rows = contain_gradients(
-            grad_pc, grad_feats)
-        loss_ok = torch.isfinite(loss_mean)
-        new_feats, new_opt_feat = feature_optimizer(feats, grad_feats,
-                                                    opt_feat)
-        new_pc, new_opt_pos = position_optimizer(scene.point_cloud, grad_pc,
-                                                 opt_pos)
-        scene = scene._replace(
-            point_cloud=torch.where(loss_ok, new_pc, scene.point_cloud),
-            point_cloud_features=torch.where(loss_ok, new_feats, feats))
-        opt_feat = keep_if_ok(loss_ok, new_opt_feat, opt_feat)
-        opt_pos = keep_if_ok(loss_ok, new_opt_pos, opt_pos)
-        ctrl = keep_if_ok(loss_ok, ctrl, ctrl_state)
-        mark("adam")
+        with span("adam", mark):
+            # containment after the sums, as in the single-view step
+            grad_pc, grad_feats, nonfinite_grad_rows = contain_gradients(
+                grad_pc, grad_feats)
+            loss_ok = torch.isfinite(loss_mean)
+            new_feats, new_opt_feat = feature_optimizer(feats, grad_feats,
+                                                        opt_feat)
+            new_pc, new_opt_pos = position_optimizer(scene.point_cloud,
+                                                     grad_pc, opt_pos)
+            scene = scene._replace(
+                point_cloud=torch.where(loss_ok, new_pc, scene.point_cloud),
+                point_cloud_features=torch.where(loss_ok, new_feats, feats))
+            opt_feat = keep_if_ok(loss_ok, new_opt_feat, opt_feat)
+            opt_pos = keep_if_ok(loss_ok, new_opt_pos, opt_pos)
+            ctrl = keep_if_ok(loss_ok, ctrl, ctrl_state)
 
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         metrics = {

@@ -71,7 +71,7 @@ from ..ops.rasterizer import (BackwardStats, RasterizeResult,
 from ..ops.sh import feature_sh_band_mask
 from ..parallel.sharding import (make_data_parallel_train_step, make_mesh,
                                  replicate_scene)
-from ..utils.profiling import TraceWindow
+from ..utils.profiling import TraceWindow, span
 from .adam import AdamState, adam_init, adam_update, exponential_decay_lr
 from .checkpoint import load_checkpoint, save_checkpoint
 from .controller import (AdaptiveControllerConfig, ControllerState,
@@ -243,18 +243,18 @@ def view_gradients(scene, feats, image_gt, q, t, camera_info, raster_config,
     result, vjp_fn = rasterize_with_vjp(
         scene.point_cloud, feats, scene.point_invalid_mask,
         scene.point_object_id, q, t, camera_info, raster_config, mark=mark)
-    image = result.image.detach().requires_grad_(True)
-    feats_leaf = feats.detach().requires_grad_(True)
-    with torch.enable_grad():
-        img = torch.clamp(image, 0.0, 1.0)
-        loss, l1, ld_ssim = loss_fn(
-            img, image_gt, point_invalid_mask=scene.point_invalid_mask,
-            pointcloud_features=feats_leaf)
-        g_image, g_feats_direct = torch.autograd.grad(
-            loss, (image, feats_leaf), allow_unused=True)
-    if g_feats_direct is None:
-        g_feats_direct = torch.zeros_like(feats)
-    mark("loss")
+    with span("loss", mark):
+        image = result.image.detach().requires_grad_(True)
+        feats_leaf = feats.detach().requires_grad_(True)
+        with torch.enable_grad():
+            img = torch.clamp(image, 0.0, 1.0)
+            loss, l1, ld_ssim = loss_fn(
+                img, image_gt, point_invalid_mask=scene.point_invalid_mask,
+                pointcloud_features=feats_leaf)
+            g_image, g_feats_direct = torch.autograd.grad(
+                loss, (image, feats_leaf), allow_unused=True)
+        if g_feats_direct is None:
+            g_feats_direct = torch.zeros_like(feats)
 
     grad_pc, grad_feats_raster, stats = vjp_fn(g_image)
     grad_feats = grad_feats_raster * grad_scale * band_mask + g_feats_direct
@@ -490,43 +490,51 @@ class GaussianPointCloudTrainer:
              sh_band: int, camera_info: CameraInfo,
              mark=_no_mark) -> StepOutput:
         """One optimizer step on one view (all tensors on the trainer's
-        device); updates the scene, both Adam states and the controller
-        statistics. `mark(stage)` is called after each stage (those of
-        `rasterize_with_vjp`, "loss" and "adam"), a timing hook."""
-        scene = self.scene
-        feats = normalize_quaternions(scene.point_cloud_features)
-        view = view_gradients(
-            scene, feats, image_gt, q, t, camera_info,
-            self.config.rasterisation_config, self.loss_fn,
-            self._grad_scale, self._band_mask(sh_band), mark)
-        grad_pc, grad_feats, nonfinite_grad_rows = contain_gradients(
-            view.grad_pc, view.grad_feats)
-        loss_ok = torch.isfinite(view.loss)
+        device), in the span `step`; updates the scene, both Adam states
+        and the controller statistics. `mark(stage)` is called after each
+        stage (those of `rasterize_with_vjp`, "loss" and "adam"), a timing
+        hook; each stage is a span of that name."""
+        with span("step"):
+            scene = self.scene
+            feats = normalize_quaternions(scene.point_cloud_features)
+            view = view_gradients(
+                scene, feats, image_gt, q, t, camera_info,
+                self.config.rasterisation_config, self.loss_fn,
+                self._grad_scale, self._band_mask(sh_band), mark)
+            with span("adam", mark):
+                grad_pc, grad_feats, nonfinite_grad_rows = contain_gradients(
+                    view.grad_pc, view.grad_feats)
+                loss_ok = torch.isfinite(view.loss)
 
-        new_feats, opt_f = self._update_features(feats, grad_feats,
-                                                 self.opt_features)
-        new_pc, opt_p = self._update_positions(scene.point_cloud, grad_pc,
-                                               self.opt_positions)
-        self.opt_features = keep_if_ok(loss_ok, opt_f, self.opt_features)
-        self.opt_positions = keep_if_ok(loss_ok, opt_p, self.opt_positions)
-        self.scene = scene._replace(
-            point_cloud=torch.where(loss_ok, new_pc, scene.point_cloud),
-            point_cloud_features=torch.where(loss_ok, new_feats, feats))
-        aux = view.result.aux
-        self.ctrl_state = keep_if_ok(
-            loss_ok, update_stats(self.ctrl_state, view.stats, grad_pc,
-                                  aux.in_frustum), self.ctrl_state)
-        mark("adam")
+                new_feats, opt_f = self._update_features(feats, grad_feats,
+                                                         self.opt_features)
+                new_pc, opt_p = self._update_positions(
+                    scene.point_cloud, grad_pc, self.opt_positions)
+                self.opt_features = keep_if_ok(loss_ok, opt_f,
+                                               self.opt_features)
+                self.opt_positions = keep_if_ok(loss_ok, opt_p,
+                                                self.opt_positions)
+                self.scene = scene._replace(
+                    point_cloud=torch.where(loss_ok, new_pc,
+                                            scene.point_cloud),
+                    point_cloud_features=torch.where(loss_ok, new_feats,
+                                                     feats))
+                aux = view.result.aux
+                self.ctrl_state = keep_if_ok(
+                    loss_ok, update_stats(self.ctrl_state, view.stats,
+                                          grad_pc, aux.in_frustum),
+                    self.ctrl_state)
 
-        metrics = {
-            "loss": view.loss, "l1": view.l1, "ssim_loss": view.ssim_loss,
-            "psnr": psnr_fn(view.image, image_gt),
-            "ssim": 1.0 - view.ssim_loss,
-            "total_keys": aux.total_keys,
-            "nonfinite_points": aux.nonfinite_points,
-            "nonfinite_grad_rows": nonfinite_grad_rows,
-            "skipped_nonfinite_step": (~loss_ok).to(torch.int32),
-        }
+            metrics = {
+                "loss": view.loss, "l1": view.l1,
+                "ssim_loss": view.ssim_loss,
+                "psnr": psnr_fn(view.image, image_gt),
+                "ssim": 1.0 - view.ssim_loss,
+                "total_keys": aux.total_keys,
+                "nonfinite_points": aux.nonfinite_points,
+                "nonfinite_grad_rows": nonfinite_grad_rows,
+                "skipped_nonfinite_step": (~loss_ok).to(torch.int32),
+            }
         return StepOutput(
             metrics, (view.stats, aux.in_frustum, aux.point_depth,
                       aux.point_uv),
@@ -538,16 +546,20 @@ class GaussianPointCloudTrainer:
                    camera_info: CameraInfo, mark=_no_mark) -> StepOutput:
         """One optimizer step on B views (images (B, H, W, 3), qs (B, 1, 4),
         ts (B, 1, 3), intrinsics (B, 3, 3), the same on every rank), this
-        rank taking its block of them (`parallel/sharding.py`)."""
+        rank taking its block of them (`parallel/sharding.py`), in the
+        span `step`."""
         key = (camera_info.camera_height, camera_info.camera_width)
         if key not in self._batch_steps:
             self._batch_steps[key] = make_data_parallel_train_step(
                 self.mesh, camera_info, self.config.rasterisation_config,
                 self.loss_fn, self._update_features, self._update_positions)
-        (self.scene, self.opt_features, self.opt_positions, self.ctrl_state,
-         metrics, densify_inputs, maps) = self._batch_steps[key](
-            self.scene, self.opt_features, self.opt_positions,
-            self.ctrl_state, images, qs, ts, intrinsics, sh_band, mark=mark)
+        with span("step"):
+            (self.scene, self.opt_features, self.opt_positions,
+             self.ctrl_state, metrics, densify_inputs,
+             maps) = self._batch_steps[key](
+                self.scene, self.opt_features, self.opt_positions,
+                self.ctrl_state, images, qs, ts, intrinsics, sh_band,
+                mark=mark)
         return StepOutput(metrics, densify_inputs, maps)
 
     # ------------------------------------------------------------------
@@ -681,7 +693,8 @@ class GaussianPointCloudTrainer:
                                           cam)
 
                 if densify_due:
-                    self._densify(iteration, out, pos_before, cam)
+                    with span("densify"):
+                        self._densify(iteration, out, pos_before, cam)
                 if (iteration >= ctrl_cfg.num_iterations_warm_up
                         and iteration
                         % ctrl_cfg.num_iterations_reset_alpha == 0):

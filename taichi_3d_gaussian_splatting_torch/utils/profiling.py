@@ -1,20 +1,30 @@
-"""The trainer's device trace, and a summary of a trace file.
+"""Stage spans, the trainer's device trace, and a summary of a trace file.
+
+`span(name, mark)` brackets one stage of a frame or a step. Inside
+`tracing()` it is a `torch.profiler.record_function` range named
+`t3dgs/<name>`, on the calling thread and on the profiler's clock, nested
+in the span around it; outside it costs one flag read. Either way it calls
+`mark(name)` when the stage ends, the timing hook of `rasterize_with_vjp`
+and `GaussianPointCloudTrainer.step`.
 
 `TraceWindow` runs `torch.profiler` over a window of training iterations
 (`TrainConfig.enable_profiler`, `profiler_start_iteration`,
 `profiler_num_steps`): CPU activity, plus the card's kernels when the
 trainer runs on one, with each traced iteration in a range named
-`iteration {i}`. When the window ends, or the run ends inside it, the card
-is synchronized and `torch.profiler.tensorboard_trace_handler` writes the
-trace to `<summary_writer_log_dir>/profile/`, one Chrome-trace JSON file
-per rank (`rank{r}.<time>.pt.trace.json`), which TensorBoard's profiler
-plugin and Perfetto read.
+`iteration {i}` and the stage spans on. When the window ends, or the run
+ends inside it, the card is synchronized and
+`torch.profiler.tensorboard_trace_handler` writes the trace to
+`<summary_writer_log_dir>/profile/`, one Chrome-trace JSON file per rank
+(`rank{r}.<time>.pt.trace.json`), which TensorBoard's profiler plugin and
+Perfetto read.
 
 `summarize_trace` reads such a file, or any Chrome trace whose ranges
 share a name prefix: over the ranges, the card's busy share, the kernel
 launches and device time per range, the kernels with the most device time,
 the host ops whose kernels take the most device time, and the time of the
-blend kernels (`csrc/`) by family and of the projection kernels.
+blend kernels (`csrc/`) by family and of the projection kernels, and,
+where the trace holds stage spans, the host's own time and the card's idle
+time by span.
 
     python -m taichi_3d_gaussian_splatting_torch.utils.profiling TRACE.json \\
         [--prefix "iteration "] [--top 10]
@@ -24,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import json
 import os
 import re
@@ -38,12 +49,68 @@ BACKWARD_KERNELS = ("backward_chunk_kernel", "blend_backward_kernel")
 # the projection kernels of csrc/ (one launch each per frame / step)
 PROJECTION_KERNELS = {"forward": "projection_forward_kernel",
                       "backward": "projection_backward_kernel"}
+# the name of every stage span's range starts with this
+SPAN_PREFIX = "t3dgs/"
+
+_spans_on = False
+
+
+def _no_mark(stage: str):
+    pass
+
+
+@contextlib.contextmanager
+def tracing():
+    """Stage spans on inside the block (`span`)."""
+    global _spans_on
+    was, _spans_on = _spans_on, True
+    try:
+        yield
+    finally:
+        _spans_on = was
+
+
+class _Span:
+    """A stage: its range while spans are on, `mark(name)` when it ends
+    without an exception."""
+    __slots__ = ("name", "mark", "range")
+
+    def __init__(self, name, mark):
+        self.name, self.mark, self.range = name, mark, None
+
+    def __enter__(self):
+        if _spans_on:
+            self.range = torch.profiler.record_function(SPAN_PREFIX
+                                                        + self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.range is not None:
+            self.range.__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            self.mark(self.name)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, mark=_no_mark):
+    """A context manager around one stage, `name` as in the trace
+    (`binning/sort`: a sub-stage of `binning`). Outside `tracing()` and
+    with no `mark` it is one shared null context: no range, no event, no
+    allocation."""
+    if not _spans_on and mark is _no_mark:
+        return _OFF
+    return _Span(name, mark)
 
 
 class TraceWindow:
-    """`torch.profiler` over iterations [start, start + num_steps) of a
-    loop that calls `begin(i)` at the top of each iteration and `close()`
-    when it ends (also on an exception)."""
+    """`torch.profiler`, with the stage spans on (`tracing`), over
+    iterations [start, start + num_steps) of a loop that calls `begin(i)`
+    at the top of each iteration and `close()` when it ends (also on an
+    exception)."""
 
     def __init__(self, log_dir: str, start: int, num_steps: int, device,
                  rank: int = 0):
@@ -53,6 +120,7 @@ class TraceWindow:
         self.device = torch.device(device)
         self.rank = rank
         self._profiler = None
+        self._spans = None
         self._range = None
 
     def begin(self, iteration: int):
@@ -71,6 +139,8 @@ class TraceWindow:
                 on_trace_ready=torch.profiler.tensorboard_trace_handler(
                     self.trace_dir, worker_name=f"rank{self.rank}"))
             self._profiler.start()
+            self._spans = tracing()
+            self._spans.__enter__()
         if self._profiler is not None:
             self._range = torch.profiler.record_function(
                 f"iteration {iteration}")
@@ -82,9 +152,12 @@ class TraceWindow:
             self._range = None
 
     def close(self):
-        """End the open range and, while the profiler runs, wait for the
-        card and stop it, which writes the trace."""
+        """End the open range and the spans and, while the profiler runs,
+        wait for the card and stop it, which writes the trace."""
         self._end_range()
+        if self._spans is not None:
+            self._spans.__exit__(None, None, None)
+            self._spans = None
         if self._profiler is None:
             return
         if self.device.type == "cuda":
@@ -180,6 +253,68 @@ def _union_us(intervals) -> float:
     return total
 
 
+def _idle_gaps(kernels, t0, t1) -> list:
+    """The stretches [a, b) of [t0, t1) in which no kernel runs."""
+    gaps, edge = [], t0
+    for a, b in sorted((k["ts"], k["ts"] + k["dur"]) for k in kernels) + [
+            (t1, t1)]:
+        if a > edge:
+            gaps.append((edge, a))
+        edge = max(edge, b)
+    return gaps
+
+
+def span_table(events, tid, t0, t1, gaps, n: int) -> dict:
+    """The stage spans (`span`) of thread `tid` that start in [t0, t1],
+    over `n` ranges. Returns {spans, idle_ms_per_range,
+    outside_idle_ms_per_range, named_idle_share}: spans maps each span
+    name (without `SPAN_PREFIX`), in the order it first appears, to
+    {parent (the name of the span around it, or None), calls_per_range,
+    host_ms_per_range (its duration less its child spans'),
+    idle_ms_per_range (the `gaps` that begin while it is the innermost
+    span)}; the idle time of every gap a range, the part that begins
+    outside any span, and the share that some span names."""
+    spans = [e for e in _complete(events, "user_annotation")
+             if e["name"].startswith(SPAN_PREFIX) and e.get("tid") == tid
+             and t0 <= e["ts"] <= t1]
+    parent, stack = [], []
+    children_us = [0.0] * len(spans)
+    for i, e in enumerate(spans):
+        while stack and e["ts"] >= (spans[stack[-1]]["ts"]
+                                    + spans[stack[-1]]["dur"]):
+            stack.pop()
+        parent.append(stack[-1] if stack else None)
+        if stack:
+            children_us[stack[-1]] += e["dur"]
+        stack.append(i)
+    rows = {}
+    for i, e in enumerate(spans):
+        row = rows.setdefault(e["name"][len(SPAN_PREFIX):], {
+            "parent": (None if parent[i] is None else
+                       spans[parent[i]]["name"][len(SPAN_PREFIX):]),
+            "calls_per_range": 0.0, "host_ms_per_range": 0.0,
+            "idle_ms_per_range": 0.0})
+        row["calls_per_range"] += 1.0 / n
+        row["host_ms_per_range"] += (e["dur"] - children_us[i]) / 1000.0 / n
+    starts = [e["ts"] for e in spans]
+    idle_us = outside_us = 0.0
+    for a, b in gaps:
+        idle_us += b - a
+        i = bisect.bisect_right(starts, a) - 1
+        while i is not None and i >= 0 and a >= (spans[i]["ts"]
+                                                 + spans[i]["dur"]):
+            i = parent[i]
+        if i is None or i < 0:
+            outside_us += b - a
+        else:
+            name = spans[i]["name"][len(SPAN_PREFIX):]
+            rows[name]["idle_ms_per_range"] += (b - a) / 1000.0 / n
+    return {"spans": rows, "idle_ms_per_range": idle_us / 1000.0 / n,
+            "outside_idle_ms_per_range": outside_us / 1000.0 / n,
+            "named_idle_share": (1.0 - outside_us / idle_us if idle_us
+                                 else 0.0)}
+
+
 def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
     """Summary of the kernels a Chrome trace (`load_events`) shows over
     its CPU ranges named `prefix...` (record_function ranges).
@@ -198,7 +333,9 @@ def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
       launches counted by blend_forward_kernel / blend_backward_kernel;
       projection: {"forward": ..., "backward": ...}, each {ms_per_range,
       launches_per_range} of projection_forward_kernel /
-      projection_backward_kernel.
+      projection_backward_kernel;
+      stages: `span_table` of the ranges' thread over the window (its
+      spans empty when the trace holds no stage span).
     Raises ValueError when the trace has no such range."""
     ranges = [e for e in _complete(events, "user_annotation")
               if e["name"].startswith(prefix)]
@@ -250,7 +387,9 @@ def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
         "kernel_ms_per_range": sum(k["dur"] for k in kernels) / 1000.0 / n,
         "top": _ranked([k["name"] for k in kernels], kernels, n, top),
         "top_ops": _ranked(_launching_ops(events, kernels), kernels, n, top),
-        "blend": blend, "projection": projection}
+        "blend": blend, "projection": projection,
+        "stages": span_table(events, ranges[0].get("tid"), t0, t1,
+                             _idle_gaps(kernels, t0, t1), n)}
 
 
 def format_summary(summary: dict, unit: str = "step") -> str:
@@ -277,6 +416,22 @@ def format_summary(summary: dict, unit: str = "step") -> str:
                          f"{row['launches_per_range']:7.1f} launches "
                          f"{row['mean_us']:9.2f} us each  "
                          f"{row['name'][:100]}")
+    stages = s["stages"]
+    if stages["spans"]:
+        lines.append(f"  stage spans per {unit}: device idle "
+                     f"{stages['idle_ms_per_range']:.4f} ms, "
+                     f"{100.0 * stages['named_idle_share']:.2f}% of it "
+                     f"begun inside a span "
+                     f"({stages['outside_idle_ms_per_range']:.4f} ms "
+                     f"outside any); host self ms, idle ms, calls:")
+        for name, row in stages["spans"].items():
+            depth, up = 0, row["parent"]
+            while up is not None:
+                depth, up = depth + 1, stages["spans"][up]["parent"]
+            lines.append(f"    {row['host_ms_per_range']:9.4f} ms "
+                         f"{row['idle_ms_per_range']:9.4f} ms "
+                         f"{row['calls_per_range']:7.2f}  "
+                         f"{'  ' * depth}{name}")
     return "\n".join(lines)
 
 
