@@ -375,18 +375,22 @@ def fail(msg):
 
 
 def reset_launch_counts():
-    """Every kernel wrapper's launch count to 0 (blend and projection)."""
+    """Every kernel wrapper's launch count to 0 (blend, projection and
+    optimizer)."""
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
+    from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
     BC.reset_launch_counts()
     PC.reset_launch_counts()
+    TA.reset_launch_counts()
 
 
 def launch_counts():
     """Every kernel wrapper's launch count, in one dict."""
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
-    return {**BC.launch_counts, **PC.launch_counts}
+    from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
+    return {**BC.launch_counts, **PC.launch_counts, **TA.launch_counts}
 
 
 def check_projection_launches(launches, label, fail):
@@ -1020,6 +1024,57 @@ def boundary_phase(cam, slab, binning, offset, fail):
         fail("boundary fixture: no `last` that a float32 row would round")
 
 
+# phase 3d: the optimizer kernel. It replaces no Pallas kernel: the JAX
+# package leaves Adam to optax and XLA's fusion.
+OPTIMIZER_SOURCE = (
+    "taichi_3d_gaussian_splatting_torch/csrc/optimizer_update.cu")
+# bytes a slot must move, by whether a direct feature gradient is read:
+# the features' raw (and direct) gradient, parameter, mu and nu in and
+# parameter, mu and nu out (224 bytes each); the positions' gradient,
+# parameter, mu and nu in and parameter, mu, nu and the contained gradient
+# out (12 bytes each)
+OPTIMIZER_BYTES = {True: 8 * 224 + 8 * 12, False: 7 * 224 + 8 * 12}
+# the training cells' slot pools
+OPTIMIZER_SLOTS = (860_000, 4_160_000)
+
+
+def optimizer_phase(card, fail):
+    """Phase 3d: the optimizer kernel against its plain version on the
+    card at the training cells' slot counts, in the single-view form
+    without and with a direct gradient (and with half the slots empty, as
+    in the trainer's pool) and in the batch form: bit for bit, then a
+    call's time (20 calls by CUDA events; the wrapper's 0-d ops included)
+    beside the bound. Returns (ms, plain ms, bound ms) of the single-view
+    form without a direct gradient (the trainer's without the regularizer)
+    at 860,000 slots."""
+    from torch_train_fixtures import assert_bitwise_equal, optimizer_inputs
+    from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
+    out = None
+    for n in OPTIMIZER_SLOTS:
+        for case in ("finite", "empty_slots", "band_3_direct", "batch_form"):
+            args, kwargs = optimizer_inputs(case, n, "cuda", seed=n)
+            got = TA.optimizer_update(*args, **kwargs)
+            want = TA.optimizer_update_torch(*args, **kwargs)
+            try:
+                assert_bitwise_equal(tuple(got), tuple(want), case)
+            except AssertionError as e:
+                fail(f"optimizer kernel, {case} at {n} slots: {e}")
+            k_ms = time_ms(lambda: TA.optimizer_update(*args, **kwargs), 20)
+            p_ms = time_ms(lambda: TA.optimizer_update_torch(*args, **kwargs),
+                           5, warmup=1)
+            direct = "grad_feats_direct" in kwargs
+            bound = n * OPTIMIZER_BYTES[direct] / PEAK_BYTES_PER_S * 1e3
+            print(f"optimizer kernel, {case} at {n} slots: bitwise equal, "
+                  f"{int(want.nonfinite_grad_rows)} zeroed; kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"by bytes ({OPTIMIZER_BYTES[direct]} a slot; "
+                  f"{100.0 * bound / k_ms:.1f}% of it) ({card})", flush=True)
+            if n == OPTIMIZER_SLOTS[0] and case == "finite":
+                out = (k_ms, p_ms, bound)
+            del args, kwargs, got, want
+    return out
+
+
 def projection_bound(name, n, num_objects):
     """(bound ms, "bytes" or "operations") of kernel `name` on n points."""
     per_point = PROJECTION_BYTES[name] + (4 if num_objects > 1 else 0)
@@ -1394,12 +1449,16 @@ def bench_phase(phase4_ms, fail):
 
 def check_training_launches(label, fail):
     """Every kernel of the training path launched since the last reset,
-    P1 once per frame and P2 once per step; returns the counts."""
+    P1 once per frame, P2 and the optimizer kernel once per single-view
+    step; returns the counts."""
     launches = launch_counts()
     if min(launches["blend_forward"], launches["blend_backward"]) < 1:
         fail(f"{label}: a kernel of the training path was never launched: "
              f"{launches}")
     check_projection_launches(launches, label, fail)
+    if launches["optimizer_update"] != launches["blend_backward"]:
+        fail(f"{label}: the optimizer kernel did not launch once per step: "
+             f"{launches}")
     return launches
 
 
@@ -2701,6 +2760,9 @@ def main():
         scenes, cam, cfg_main["near_plane"], cfg_main["far_plane"], card,
         fail)
 
+    # ---- 3d. the optimizer kernel vs its plain version on the card -----
+    opt_ms, opt_plain, opt_bound = optimizer_phase(card, fail)
+
     # ---- 4. main path ---------------------------------------------------
     cfg_rgb = RasterizerConfig(**cfg_main, rgb_only=True)
     cfg_full = RasterizerConfig(**cfg_main, rgb_only=False)
@@ -2869,6 +2931,12 @@ def main():
                  "bound_ms": p_bounds[name][0], "bound_by": p_bounds[name][1],
                  "library_ms": None}
                 for name in ("project_forward", "project_backward")]
+    kernels.append({"name": "optimizer_update", "route": "cuda",
+                    "source": OPTIMIZER_SOURCE, "replaces": None,
+                    "launches": train_launches["optimizer_update"],
+                    "max_abs_err": 0.0, "ms": opt_ms, "plain_ms": opt_plain,
+                    "bound_ms": opt_bound, "bound_by": "bytes",
+                    "library_ms": None})
     kernels += probe_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

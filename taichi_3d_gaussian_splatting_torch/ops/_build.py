@@ -29,11 +29,13 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of single sources: the projection kernels round every product and
-# sum on its own, as the plain version's torch ops do (no contraction into
-# fused multiply-adds), so that their masks match it exactly
+# flags of single sources: the projection and optimizer kernels round every
+# product and sum on its own, as the plain versions' torch ops do (no
+# contraction into fused multiply-adds), so that their masks match them
+# exactly and the optimizer's update bit for bit
 SOURCE_FLAGS = {"projection_forward.cu": ("-fmad=false",),
-                "projection_backward.cu": ("-fmad=false",)}
+                "projection_backward.cu": ("-fmad=false",),
+                "optimizer_update.cu": ("-fmad=false",)}
 
 _library = None
 # what ptxas reported (registers, shared memory, spills) for the last build
@@ -89,7 +91,26 @@ def _declare(lib):
     fn.argtypes = [p, p, p, i, p, p, i, p, p, f, p, ctypes.c_longlong, p, p,
                    p]
     fn.restype = i
+    fn = lib.t3dgs_optimizer_update
+    # n, feats, grad, direct, scale, band_mask, mu_f, nu_f, pc, grad_pc,
+    # mu_p, nu_p, features (AdamGroupArgs*), positions, loss_ok, out_feats,
+    # out_mu_f, out_nu_f, out_pc, out_mu_p, out_nu_p, out_grad_pc,
+    # nonfinite, stream
+    group = ctypes.POINTER(AdamGroupArgs)
+    fn.argtypes = [i] + [p] * 11 + [group, group] + [p] * 10
+    fn.restype = i
     return lib
+
+
+class AdamGroupArgs(ctypes.Structure):
+    """t3dgs_opt::Group of csrc/optimizer_update.cu: an Adam group's bias
+    corrections and scheduled learning rate (device pointers to 0-d
+    float32; `lr_ptr` may be None, then `lr` holds), its betas and eps."""
+    _fields_ = [("bc1", ctypes.c_void_p), ("bc2", ctypes.c_void_p),
+                ("lr_ptr", ctypes.c_void_p), ("lr", ctypes.c_float),
+                ("one_minus_b1", ctypes.c_float), ("b1", ctypes.c_float),
+                ("one_minus_b2", ctypes.c_float), ("b2", ctypes.c_float),
+                ("eps", ctypes.c_float)]
 
 
 def _compile(nvcc, sources, lib_path):

@@ -87,7 +87,7 @@ def toy_batch_step(device):
     from ..camera import CameraInfo
     from ..models.scene import GaussianPointCloudScene, SceneConfig
     from ..ops.rasterizer import RasterizerConfig
-    from ..training.adam import adam_init, adam_update
+    from ..training.adam import AdamGroup, adam_init
     from ..training.controller import ControllerState
     from ..training.loss import LossFunction, LossFunctionConfig
     from .sharding import (make_data_parallel_train_step, make_mesh,
@@ -108,8 +108,7 @@ def toy_batch_step(device):
     step = make_data_parallel_train_step(
         mesh, cam, RasterizerConfig(near_plane=0.1, far_plane=100.0),
         LossFunction(LossFunctionConfig(enable_regularization=False)),
-        lambda p, g, s: adam_update(p, g, s, 1e-3),
-        lambda p, g, s: adam_update(p, g, s, 1e-5))
+        AdamGroup(1e-3), AdamGroup(1e-5))
 
     b = mesh.size
     rng = np.random.default_rng(1)

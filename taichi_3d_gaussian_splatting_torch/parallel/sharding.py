@@ -78,7 +78,8 @@ def make_data_parallel_train_step(
 ) -> Callable:
     """The multi-view training step over `mesh`.
 
-    The optimizers are `(param, grad, state) -> (new_param, new_state)`.
+    The optimizers are the groups' `training.adam.AdamGroup`s; the step
+    takes both in one `training.adam_cuda.optimizer_update`.
     The returned function has the signature
       step(scene, opt_feat, opt_pos, ctrl_state,
            images (B, H, W, 3), qs (B, 1, 4), ts (B, 1, 3),
@@ -95,8 +96,8 @@ def make_data_parallel_train_step(
     statistics and the running sums), after "allreduce" and after
     "adam"; each stage is a span of that name (`utils/profiling.py`).
     """
-    from ..training.trainer import (_grad_group_scale, contain_gradients,
-                                    keep_if_ok, normalize_quaternions,
+    from ..training.adam_cuda import keep_if_ok, optimizer_update
+    from ..training.trainer import (_grad_group_scale, normalize_quaternions,
                                     view_gradients)
     grad_scale = torch.as_tensor(_grad_group_scale(raster_config))
     masks = {}
@@ -189,18 +190,13 @@ def make_data_parallel_train_step(
 
         with span("adam", mark):
             # containment after the sums, as in the single-view step
-            grad_pc, grad_feats, nonfinite_grad_rows = contain_gradients(
-                grad_pc, grad_feats)
             loss_ok = torch.isfinite(loss_mean)
-            new_feats, new_opt_feat = feature_optimizer(feats, grad_feats,
-                                                        opt_feat)
-            new_pc, new_opt_pos = position_optimizer(scene.point_cloud,
-                                                     grad_pc, opt_pos)
-            scene = scene._replace(
-                point_cloud=torch.where(loss_ok, new_pc, scene.point_cloud),
-                point_cloud_features=torch.where(loss_ok, new_feats, feats))
-            opt_feat = keep_if_ok(loss_ok, new_opt_feat, opt_feat)
-            opt_pos = keep_if_ok(loss_ok, new_opt_pos, opt_pos)
+            up = optimizer_update(feats, grad_feats, scene.point_cloud,
+                                  grad_pc, opt_feat, opt_pos,
+                                  feature_optimizer, position_optimizer,
+                                  loss_ok)
+            scene = scene._replace(point_cloud=up.pc,
+                                   point_cloud_features=up.feats)
             ctrl = keep_if_ok(loss_ok, ctrl, ctrl_state)
 
         zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -210,10 +206,10 @@ def make_data_parallel_train_step(
             "key_overflow": zero, "big_point_overflow": zero,
             "tile_cap_overflow": zero,
             "total_keys": total_keys, "nonfinite_points": nonfinite_points,
-            "nonfinite_grad_rows": nonfinite_grad_rows,
+            "nonfinite_grad_rows": up.nonfinite_grad_rows,
             "skipped_nonfinite_step": (~loss_ok).to(torch.int32),
         }
-        return (scene, opt_feat, opt_pos, ctrl, metrics, densify_inputs,
-                maps)
+        return (scene, up.opt_features, up.opt_positions, ctrl, metrics,
+                densify_inputs, maps)
 
     return step

@@ -11,7 +11,7 @@ modified in place.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Union
 
 import numpy as np
 import torch
@@ -48,6 +48,29 @@ def exponential_decay_lr(base: float, gamma: float, interval: int,
     taken before this one: the first update runs at `base`, updates 1 to
     `interval` at base * gamma, and so on."""
     return base * torch.pow(gamma, torch.ceil(count / interval))
+
+
+class AdamGroup(NamedTuple):
+    """One parameter group's Adam: its learning rate (a float, or a
+    schedule: a function of the count of updates taken, such as
+    `exponential_decay_lr` with its other arguments bound), betas and eps.
+    Called as `(param, grad, state) -> (new_param, new_state)` it takes
+    `adam_update`; `training/adam_cuda.py::optimizer_update` takes both
+    groups' settings from it."""
+    lr: Union[float, Callable[[torch.Tensor], torch.Tensor]]
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def learning_rate(self, count: torch.Tensor):
+        """The rate of the update after `count` updates: a float, or the
+        schedule's value (a 0-d tensor on `count`'s device)."""
+        return self.lr(count) if callable(self.lr) else self.lr
+
+    def __call__(self, param, grad, state: AdamState):
+        return adam_update(param, grad, state,
+                           self.learning_rate(state.count), self.b1,
+                           self.b2, self.eps)
 
 
 def adam_state_from_optax(opt_state, device="cuda") -> AdamState:

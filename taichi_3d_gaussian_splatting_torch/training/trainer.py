@@ -13,6 +13,9 @@ Each step, on one view (`view_gradients`):
   whole update (Adam moments and controller statistics included);
 - two Adam chains: features at `feature_learning_rate`, positions at
   `position_learning_rate * decay_rate ** ceil(count / decay_interval)`.
+The scaling and masking, the containment, both chains and the loss guard
+are one call, `training/adam_cuda.py::optimizer_update` (one kernel on the
+card), which the batch step calls too.
 
 With `batch_size` B > 1 a step takes B views through
 `parallel/sharding.py`: the views are split over the ranks of the
@@ -72,7 +75,10 @@ from ..ops.sh import feature_sh_band_mask
 from ..parallel.sharding import (make_data_parallel_train_step, make_mesh,
                                  replicate_scene)
 from ..utils.profiling import TraceWindow, span
-from .adam import AdamState, adam_init, adam_update, exponential_decay_lr
+from .adam import AdamGroup, AdamState, adam_init, exponential_decay_lr
+from .adam_cuda import (combine_feature_gradients, keep_if_ok,
+                        optimizer_update)
+from .adam_cuda import contain_gradients  # noqa: F401 (imported from here)
 from .checkpoint import load_checkpoint, save_checkpoint
 from .controller import (AdaptiveControllerConfig, ControllerState,
                          densify_step, reset_alpha, update_stats)
@@ -227,9 +233,22 @@ class ViewGradients(NamedTuple):
     ssim_loss: torch.Tensor
     image: torch.Tensor          # the clipped render (H, W, 3)
     grad_pc: torch.Tensor        # (N, 3)
-    grad_feats: torch.Tensor     # (N, 56), scaled and band-masked
+    grad_feats_raster: torch.Tensor  # (N, 56), the rasterizer path's
+    # (N, 56), the loss's own (the regularizer's); None when the loss does
+    # not read the features
+    grad_feats_direct: Optional[torch.Tensor]
+    grad_scale: torch.Tensor     # (56,) per-group scale of the raster path
+    band_mask: torch.Tensor      # (56,) the active SH bands
     stats: BackwardStats
     result: RasterizeResult      # no autograd graph
+
+    @property
+    def grad_feats(self) -> torch.Tensor:
+        """(N, 56): the rasterizer path's gradients scaled and band-masked,
+        plus the loss's own."""
+        return combine_feature_gradients(
+            self.grad_feats_raster, self.grad_scale, self.band_mask,
+            self.grad_feats_direct)
 
 
 def view_gradients(scene, feats, image_gt, q, t, camera_info, raster_config,
@@ -253,33 +272,11 @@ def view_gradients(scene, feats, image_gt, q, t, camera_info, raster_config,
                 pointcloud_features=feats_leaf)
             g_image, g_feats_direct = torch.autograd.grad(
                 loss, (image, feats_leaf), allow_unused=True)
-        if g_feats_direct is None:
-            g_feats_direct = torch.zeros_like(feats)
 
     grad_pc, grad_feats_raster, stats = vjp_fn(g_image)
-    grad_feats = grad_feats_raster * grad_scale * band_mask + g_feats_direct
     return ViewGradients(loss.detach(), l1.detach(), ld_ssim.detach(),
-                         img.detach(), grad_pc, grad_feats, stats, result)
-
-
-def contain_gradients(grad_pc, grad_feats):
-    """Zero the non-finite gradient rows (a culled degenerate splat's VJP
-    can still give 0 * inf = NaN), so that one point cannot poison its Adam
-    moments. Returns (grad_pc, grad_feats, number of points zeroed)."""
-    feat_row_ok = torch.isfinite(grad_feats).all(dim=1, keepdim=True)
-    pc_row_ok = torch.isfinite(grad_pc).all(dim=1, keepdim=True)
-    nonfinite_grad_rows = (~feat_row_ok[:, 0] | ~pc_row_ok[:, 0]).sum(
-        dtype=torch.int32)
-    return (torch.where(pc_row_ok, grad_pc, torch.zeros_like(grad_pc)),
-            torch.where(feat_row_ok, grad_feats,
-                        torch.zeros_like(grad_feats)),
-            nonfinite_grad_rows)
-
-
-def keep_if_ok(loss_ok, new, old):
-    """`new` where the loss was finite, else `old` (NamedTuples of tensors):
-    a non-finite loss poisons every gradient."""
-    return type(old)(*(torch.where(loss_ok, a, b) for a, b in zip(new, old)))
+                         img.detach(), grad_pc, grad_feats_raster,
+                         g_feats_direct, grad_scale, band_mask, stats, result)
 
 
 def _downsample_item(item: DatasetItem, factor: int) -> DatasetItem:
@@ -412,6 +409,11 @@ class GaussianPointCloudTrainer:
         self.data_generator = torch.Generator().manual_seed(config.seed)
         self.opt_features = adam_init(self.scene.point_cloud_features)
         self.opt_positions = adam_init(self.scene.point_cloud)
+        # each group's Adam, also callable as (param, grad, state)
+        self._update_features = AdamGroup(config.feature_learning_rate,
+                                          *self.betas)
+        self._update_positions = AdamGroup(self._position_learning_rate,
+                                           *self.betas)
         self._grad_scale = torch.as_tensor(
             _grad_group_scale(config.rasterisation_config),
             device=self.device)
@@ -474,17 +476,13 @@ class GaussianPointCloudTrainer:
                 sh_band, device=self.device)
         return self._band_masks[sh_band]
 
-    def _update_features(self, param, grad, state):
-        return adam_update(param, grad, state,
-                           self.config.feature_learning_rate, *self.betas)
-
-    def _update_positions(self, param, grad, state):
+    def _position_learning_rate(self, count: torch.Tensor) -> torch.Tensor:
+        """The position group's rate after `count` updates."""
         cfg = self.config
-        lr = exponential_decay_lr(
+        return exponential_decay_lr(
             cfg.position_learning_rate,
             cfg.position_learning_rate_decay_rate,
-            cfg.position_learning_rate_decay_interval, state.count)
-        return adam_update(param, grad, state, lr, *self.betas)
+            cfg.position_learning_rate_decay_interval, count)
 
     def step(self, image_gt: torch.Tensor, q: torch.Tensor, t: torch.Tensor,
              sh_band: int, camera_info: CameraInfo,
@@ -502,27 +500,20 @@ class GaussianPointCloudTrainer:
                 self.config.rasterisation_config, self.loss_fn,
                 self._grad_scale, self._band_mask(sh_band), mark)
             with span("adam", mark):
-                grad_pc, grad_feats, nonfinite_grad_rows = contain_gradients(
-                    view.grad_pc, view.grad_feats)
                 loss_ok = torch.isfinite(view.loss)
-
-                new_feats, opt_f = self._update_features(feats, grad_feats,
-                                                         self.opt_features)
-                new_pc, opt_p = self._update_positions(
-                    scene.point_cloud, grad_pc, self.opt_positions)
-                self.opt_features = keep_if_ok(loss_ok, opt_f,
-                                               self.opt_features)
-                self.opt_positions = keep_if_ok(loss_ok, opt_p,
-                                                self.opt_positions)
-                self.scene = scene._replace(
-                    point_cloud=torch.where(loss_ok, new_pc,
-                                            scene.point_cloud),
-                    point_cloud_features=torch.where(loss_ok, new_feats,
-                                                     feats))
+                up = optimizer_update(
+                    feats, view.grad_feats_raster, scene.point_cloud,
+                    view.grad_pc, self.opt_features, self.opt_positions,
+                    self._update_features, self._update_positions, loss_ok,
+                    view.grad_scale, view.band_mask, view.grad_feats_direct)
+                self.opt_features, self.opt_positions = (up.opt_features,
+                                                         up.opt_positions)
+                self.scene = scene._replace(point_cloud=up.pc,
+                                            point_cloud_features=up.feats)
                 aux = view.result.aux
                 self.ctrl_state = keep_if_ok(
                     loss_ok, update_stats(self.ctrl_state, view.stats,
-                                          grad_pc, aux.in_frustum),
+                                          up.grad_pc, aux.in_frustum),
                     self.ctrl_state)
 
             metrics = {
@@ -532,7 +523,7 @@ class GaussianPointCloudTrainer:
                 "ssim": 1.0 - view.ssim_loss,
                 "total_keys": aux.total_keys,
                 "nonfinite_points": aux.nonfinite_points,
-                "nonfinite_grad_rows": nonfinite_grad_rows,
+                "nonfinite_grad_rows": up.nonfinite_grad_rows,
                 "skipped_nonfinite_step": (~loss_ok).to(torch.int32),
             }
         return StepOutput(

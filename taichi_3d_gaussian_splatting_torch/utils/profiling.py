@@ -49,6 +49,8 @@ BACKWARD_KERNELS = ("backward_chunk_kernel", "blend_backward_kernel")
 # the projection kernels of csrc/ (one launch each per frame / step)
 PROJECTION_KERNELS = {"forward": "projection_forward_kernel",
                       "backward": "projection_backward_kernel"}
+# the optimizer kernel of csrc/ (one launch per step)
+OPTIMIZER_KERNEL = "optimizer_update_kernel"
 # the name of every stage span's range starts with this
 SPAN_PREFIX = "t3dgs/"
 
@@ -334,6 +336,8 @@ def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
       projection: {"forward": ..., "backward": ...}, each {ms_per_range,
       launches_per_range} of projection_forward_kernel /
       projection_backward_kernel;
+      optimizer: {ms_per_range, launches_per_range} of
+      optimizer_update_kernel;
       stages: `span_table` of the ranges' thread over the window (its
       spans empty when the trace holds no stage span).
     Raises ValueError when the trace has no such range."""
@@ -353,10 +357,15 @@ def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
                    "kernels": {}} for fam in ("forward", "backward")}
     projection = {fam: {"ms_per_range": 0.0, "launches_per_range": 0.0}
                   for fam in PROJECTION_KERNELS}
+    optimizer = {"ms_per_range": 0.0, "launches_per_range": 0.0}
     by_name = {name: fam for fam, name in PROJECTION_KERNELS.items()}
     pending = []
     for k in kernels:
         base = kernel_base_name(k["name"])
+        if base == OPTIMIZER_KERNEL:
+            optimizer["ms_per_range"] += k["dur"] / 1000.0 / n
+            optimizer["launches_per_range"] += 1.0 / n
+            continue
         if base in by_name:
             entry = projection[by_name[base]]
             entry["ms_per_range"] += k["dur"] / 1000.0 / n
@@ -387,7 +396,7 @@ def summarize_trace(events, prefix: str = "iteration ", top: int = 10):
         "kernel_ms_per_range": sum(k["dur"] for k in kernels) / 1000.0 / n,
         "top": _ranked([k["name"] for k in kernels], kernels, n, top),
         "top_ops": _ranked(_launching_ops(events, kernels), kernels, n, top),
-        "blend": blend, "projection": projection,
+        "blend": blend, "projection": projection, "optimizer": optimizer,
         "stages": span_table(events, ranges[0].get("tid"), t0, t1,
                              _idle_gaps(kernels, t0, t1), n)}
 
@@ -408,6 +417,9 @@ def format_summary(summary: dict, unit: str = "step") -> str:
         lines.append(f"  projection {fam}: {entry['ms_per_range']:.4f} ms "
                      f"and {entry['launches_per_range']:.2f} launches per "
                      f"{unit}")
+    entry = s["optimizer"]
+    lines.append(f"  optimizer: {entry['ms_per_range']:.4f} ms and "
+                 f"{entry['launches_per_range']:.2f} launches per {unit}")
     for key, what in (("top", "kernels"),
                       ("top_ops", "host ops by their kernels' time")):
         lines.append(f"  top {len(s[key])} {what} per {unit}:")

@@ -1,7 +1,7 @@
-"""The CUDA blend kernels (forward and backward) and projection kernels
-(P1, P2) against their plain PyTorch versions on the card; one training
-step, two batch steps and the viewer's frames on the card against the same
-on the CPU.
+"""The CUDA blend kernels (forward and backward), projection kernels
+(P1, P2) and optimizer kernel against their plain PyTorch versions on the
+card; one training step, two batch steps and the viewer's frames on the
+card against the same on the CPU.
 
 Marked `cuda`: skips without a card. Run on a machine with an H100 as
 
@@ -25,14 +25,16 @@ from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
 from taichi_3d_gaussian_splatting_torch.ops.sh import sh_band_mask
 from taichi_3d_gaussian_splatting_torch.ops.tiling import blend_slab
 from taichi_3d_gaussian_splatting_torch.ops.transforms import inverse_SE3_qt
+from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
 
 from torch_chunk_fixtures import (BOUNDARY_OFFSET, NUM_TILES, TILES_PER_ROW,
                                   long_segment_slab, shifted_slab)
 from torch_port_fixtures import (AB_CASES, ATOL, RTOL, assert_counts_close,
                                  camera_intrinsics, identity_pose,
                                  random_scene)
-from torch_train_fixtures import (batch_step_state, one_step_state,
-                                  write_dataset)
+from torch_train_fixtures import (OPTIMIZER_CASES, assert_bitwise_equal,
+                                  batch_step_state, one_step_state,
+                                  optimizer_inputs, write_dataset)
 
 pytestmark = pytest.mark.cuda
 
@@ -362,6 +364,35 @@ def test_batch_steps_on_card_match_cpu(cuda, tmp_path):
                                    rtol=RTOL, atol=ATOL, err_msg=k)
 
 
+@pytest.mark.parametrize("n", [4_160_000, 1_000_003])
+@pytest.mark.parametrize("case", list(OPTIMIZER_CASES))
+def test_optimizer_kernel_matches_plain(cuda, case, n):
+    """The optimizer kernel bit for bit equal to its plain version on the
+    card, the count of zeroed slots included, at the 2.08M training cell's
+    4,160,000 slots and at an odd count; one launch a call."""
+    args, kwargs = optimizer_inputs(case, n, cuda, seed=n)
+    before = TA.launch_counts["optimizer_update"]
+    got = TA.optimizer_update(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert TA.launch_counts["optimizer_update"] == before + 1
+    want = TA.optimizer_update_torch(*args, **kwargs)
+    assert_bitwise_equal(tuple(got), tuple(want), case)
+    c = OPTIMIZER_CASES[case]
+    assert (int(want.nonfinite_grad_rows) > 0) == bool(
+        c.get("bad_feats") or c.get("bad_pc"))
+
+
+def test_optimizer_kernel_launches_once_a_step(cuda, tmp_path):
+    """One optimizer kernel launch a step on the card: a single-view step
+    and two batch steps."""
+    write_dataset(str(tmp_path))
+    before = TA.launch_counts["optimizer_update"]
+    one_step_state(str(tmp_path), "cuda")
+    assert TA.launch_counts["optimizer_update"] == before + 1
+    batch_step_state(cuda, str(tmp_path))
+    assert TA.launch_counts["optimizer_update"] == before + 3
+
+
 def test_viewer_on_card_matches_cpu(cuda, tmp_path):
     """The viewer's frames on the card against the CPU after a camera key,
     an object key and a hide; each frame launches K1 once."""
@@ -423,3 +454,4 @@ def test_trainer_trace_shows_the_kernels(cuda, tmp_path):
     for fam in ("forward", "backward"):
         assert summary["blend"][fam]["launches_per_range"] == 1.0, fam
         assert summary["projection"][fam]["launches_per_range"] == 1.0, fam
+    assert summary["optimizer"]["launches_per_range"] == 1.0

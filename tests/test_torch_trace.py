@@ -230,6 +230,23 @@ def test_summarize_trace_reports_the_projection_kernels():
     assert "projection backward: 0.0040 ms" in P.format_summary(s)
 
 
+def test_summarize_trace_reports_the_optimizer_kernel():
+    """The optimizer kernel is counted per range on its own."""
+    events = [
+        _x("user_annotation", "iteration 1", 0, 50),
+        _x("user_annotation", "iteration 2", 50, 50),
+        _x("kernel", "t3dgs_opt::(anonymous namespace)::"
+           "optimizer_update_kernel(int, float4 const*)", 30, 12),
+        _x("kernel", "t3dgs_opt::(anonymous namespace)::"
+           "optimizer_update_kernel(int, float4 const*)", 80, 10),
+    ]
+    s = P.summarize_trace(events)
+    assert s["optimizer"]["launches_per_range"] == pytest.approx(1.0)
+    assert s["optimizer"]["ms_per_range"] == pytest.approx(0.011)
+    assert s["projection"]["forward"]["launches_per_range"] == 0.0
+    assert "optimizer: 0.0110 ms and 1.00 launches" in P.format_summary(s)
+
+
 def test_launching_ops_take_the_outermost_op_of_the_call():
     """A kernel is charged to the outermost CPU op around the runtime call
     of the same correlation id, on that call's thread (an op and its child

@@ -39,10 +39,13 @@ from taichi_3d_gaussian_splatting_torch.training import controller as TC
 from taichi_3d_gaussian_splatting_torch.training import loss as TL
 from taichi_3d_gaussian_splatting_torch.training import ssim as TS
 from taichi_3d_gaussian_splatting_torch.training import trainer as TT
+from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
 from taichi_3d_gaussian_splatting_torch.training.adam import (
-    adam_state_from_optax)
+    adam_state_from_optax, adam_update)
 
-from torch_train_fixtures import config_dict, write_dataset
+from torch_train_fixtures import (OPTIMIZER_CASES, assert_bitwise_equal,
+                                  batch_step_state, config_dict,
+                                  optimizer_inputs, write_dataset)
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -425,3 +428,105 @@ def test_train_streams_without_device_cache(tmp_path):
     losses = [r["train/loss"] for r in records if "train/loss" in r]
     assert len(losses) == 4 and np.isfinite(losses).all()
     assert os.path.isfile(tmp_path / "logs" / "scene_4.parquet")
+
+
+# ---------------------------------------------------------------------------
+# the optimizer step (training/adam_cuda.py)
+# ---------------------------------------------------------------------------
+
+def _parent_chain(feats, grad_feats, pc, grad_pc, opt_f, opt_p, features,
+                  positions, loss_ok, grad_scale=None, band_mask=None,
+                  grad_feats_direct=None):
+    """The optimizer step as the single-view and batch steps ran it before
+    one call held it (copied): the features' combination line,
+    contain_gradients, adam_update for both groups, keep_if_ok and the
+    torch.where over both parameters."""
+    if grad_scale is not None:
+        if grad_feats_direct is None:
+            grad_feats_direct = torch.zeros_like(feats)
+        grad_feats = grad_feats * grad_scale * band_mask + grad_feats_direct
+    feat_row_ok = torch.isfinite(grad_feats).all(dim=1, keepdim=True)
+    pc_row_ok = torch.isfinite(grad_pc).all(dim=1, keepdim=True)
+    nonfinite_grad_rows = (~feat_row_ok[:, 0] | ~pc_row_ok[:, 0]).sum(
+        dtype=torch.int32)
+    grad_pc = torch.where(pc_row_ok, grad_pc, torch.zeros_like(grad_pc))
+    grad_feats = torch.where(feat_row_ok, grad_feats,
+                             torch.zeros_like(grad_feats))
+    new_feats, new_f = adam_update(feats, grad_feats, opt_f, features.lr,
+                                   features.b1, features.b2)
+    new_pc, new_p = adam_update(pc, grad_pc, opt_p, positions.lr(opt_p.count),
+                                positions.b1, positions.b2)
+
+    def keep(new, old):
+        return type(old)(*(torch.where(loss_ok, a, b)
+                           for a, b in zip(new, old)))
+
+    return TA.OptimizerUpdate(
+        torch.where(loss_ok, new_feats, feats),
+        torch.where(loss_ok, new_pc, pc), keep(new_f, opt_f),
+        keep(new_p, opt_p), grad_pc, nonfinite_grad_rows)
+
+
+@pytest.mark.parametrize("case", list(OPTIMIZER_CASES))
+def test_optimizer_update_matches_the_parent_chain(case):
+    """optimizer_update on the CPU (its plain version) bit for bit equal to
+    the chain it replaced, case by case: non-finite feature and position
+    rows, a non-finite loss, the learning-rate decay past its interval, the
+    batch-scaled betas, SH bands 0 and 3, a direct gradient, the batch form
+    without scale or mask. The CPU launches no kernel."""
+    args, kwargs = optimizer_inputs(case, 257, "cpu", seed=3)
+    want = _parent_chain(*args, **kwargs)
+    before = dict(TA.launch_counts)
+    for fn in (TA.optimizer_update, TA.optimizer_update_torch):
+        assert_bitwise_equal(tuple(fn(*args, **kwargs)), tuple(want), case)
+    assert TA.launch_counts == before
+    c = OPTIMIZER_CASES[case]
+    zeroed = int(want[5])
+    assert (zeroed > 0) == bool(c.get("bad_feats") or c.get("bad_pc"))
+    counts = int(want[2].count), int(want[3].count)
+    start = c.get("count", 0)
+    assert counts == ((start, start) if c.get("loss_ok") is False
+                      else (start + 1, start + 1))
+
+
+def _single_steps(root, steps=2):
+    """The training state after `steps` single-view steps of the port's
+    trainer on the CPU (anisotropic scales, as one_step_state)."""
+    trainer = TT.GaussianPointCloudTrainer(
+        tconfig.from_dict(TT.TrainConfig, config_dict(root)), device="cpu")
+    feats = trainer.scene.point_cloud_features.numpy().copy()
+    rng = np.random.default_rng(5)
+    feats[:, 4:7] += rng.uniform(-0.5, 0.5, (feats.shape[0], 3))
+    trainer.scene = trainer.scene._replace(
+        point_cloud_features=torch.as_tensor(feats))
+    for k in range(steps):
+        item = trainer.train_dataset[k]
+        trainer.step(torch.as_tensor(item.image),
+                     torch.as_tensor(item.q_pointcloud_camera),
+                     torch.as_tensor(item.t_pointcloud_camera), 1,
+                     item.camera_info)
+    trainer.logger.close()
+    return {k: v for k, v in trainer.state_arrays().items()
+            if not k.endswith("generator")}
+
+
+def test_steps_match_the_parent_chain(tmp_path, monkeypatch):
+    """Two trainer steps and two batch steps on the CPU leave the same
+    state, bit for bit, as with the chain optimizer_update replaced in
+    both (patched in where each step takes it)."""
+    write_dataset(str(tmp_path))
+    root = str(tmp_path)
+    single = _single_steps(root)
+    batch = batch_step_state(torch.device("cpu"), root)
+    with monkeypatch.context() as m:
+        m.setattr(TT, "optimizer_update", _parent_chain)
+        m.setattr(TA, "optimizer_update", _parent_chain)
+        parent_single = _single_steps(root)
+        parent_batch = batch_step_state(torch.device("cpu"), root)
+    assert batch["losses"] == parent_batch["losses"]
+    for got, want in ((single, parent_single),
+                      (batch["state"], parent_batch["state"])):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert_bitwise_equal(torch.as_tensor(got[k]),
+                                 torch.as_tensor(want[k]), k)

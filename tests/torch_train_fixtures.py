@@ -3,6 +3,7 @@ own render (torch only, no JAX), and the config the trainer tests run it
 with. Used by tests/test_torch_training.py, tests/test_torch_cuda.py and
 chip_smoke.py."""
 
+import functools
 import json
 import os
 
@@ -171,3 +172,99 @@ def batch_step_state(device, root):
             "state": {k: v.cpu().numpy()
                       for k, v in trainer.state_arrays().items()
                       if not k.endswith("generator")}}
+
+
+# The cases of training/adam_cuda.py::optimizer_update's tests: what each
+# changes from the default inputs (count 0, SH band 1, the trainer's betas,
+# a finite loss, finite gradients, no direct gradient, a single-view step's
+# raw gradient with its group scale and band mask).
+OPTIMIZER_CASES = {
+    "finite": {},
+    "nan_feature_rows": {"bad_feats": True},
+    "inf_position_rows": {"bad_pc": True},
+    "both_rows": {"bad_feats": True, "bad_pc": True},
+    "loss_not_finite": {"loss_ok": False, "bad_feats": True},
+    "count_past_decay": {"count": 150},
+    "batch_betas": {"betas": (0.9 ** 4, 0.999 ** 4), "count": 3},
+    "band_0": {"band": 0},
+    "band_3_direct": {"band": 3, "direct": True},
+    "batch_form": {"batch": True, "bad_pc": True},
+    "empty_slots": {"empty": True, "count": 7},
+}
+
+
+def optimizer_inputs(case, n, device, seed=0):
+    """(args, kwargs) of optimizer_update for OPTIMIZER_CASES[case] at `n`
+    slots, drawn on `device` from `seed`: moments from an
+    earlier update, gradients with exact and negative zeros, and, where the
+    case asks, NaN and inf in feature rows (one in an inactive SH column,
+    where the band mask's 0 turns it into NaN) and position rows, the first
+    and last slots among them; with `empty`, the second half of the slots
+    all zero (parameters, gradients and moments), as the pool's free slots
+    are, the last quarter -0.0."""
+    from taichi_3d_gaussian_splatting_torch.ops.sh import feature_sh_band_mask
+    from taichi_3d_gaussian_splatting_torch.training.adam import (
+        AdamGroup, AdamState, exponential_decay_lr)
+    c = dict(OPTIMIZER_CASES[case])
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    count = torch.tensor(c.get("count", 0), dtype=torch.int32, device=device)
+    feats, pc = normal(n, 56), normal(n, 3)
+    grad_feats, grad_pc = normal(n, 56, scale=1e-2), normal(n, 3, scale=1e-3)
+    for g in (grad_feats, grad_pc):
+        g[torch.rand(g.shape, generator=gen, device=device) < 0.05] = 0.0
+        g[torch.rand(g.shape, generator=gen, device=device) < 0.05] = -0.0
+    opt_f = AdamState(normal(n, 56, scale=1e-3),
+                      normal(n, 56, scale=1e-3) ** 2, count.clone())
+    opt_p = AdamState(normal(n, 3, scale=1e-4), normal(n, 3, scale=1e-4) ** 2,
+                      count.clone())
+    bad = torch.unique(torch.cat([
+        torch.tensor([0, n - 1], device=device),
+        torch.randint(0, n, (max(n // 100, 1),), generator=gen,
+                      device=device)]))
+    if c.get("bad_feats"):
+        grad_feats[bad[::2], 5] = float("nan")
+        grad_feats[bad[1::2], 55] = float("inf")
+    if c.get("bad_pc"):
+        grad_pc[bad[1::3], 1] = float("-inf")
+        grad_pc[bad[::3], 2] = float("nan")
+    if c.get("empty"):
+        for t in (feats, pc, grad_feats, grad_pc, *opt_f[:2], *opt_p[:2]):
+            t[n // 2:] = 0.0
+            t[3 * n // 4:] = -0.0
+    b1, b2 = c.get("betas", (0.9, 0.999))
+    position_lr = functools.partial(exponential_decay_lr, 1e-3, 0.5, 100)
+    groups = (AdamGroup(5e-3, b1, b2), AdamGroup(position_lr, b1, b2))
+    kwargs = {}
+    if not c.get("batch"):
+        scale = torch.full((56,), 0.75, device=device)
+        scale[0:4], scale[4:7], scale[7] = 1.0, 0.5, 20.0
+        scale[[8, 24, 40]] = 5.0
+        kwargs = {"grad_scale": scale,
+                  "band_mask": feature_sh_band_mask(c.get("band", 1),
+                                                    device=device)}
+        if c.get("direct"):
+            kwargs["grad_feats_direct"] = normal(n, 56, scale=1e-4)
+    loss_ok = torch.tensor(c.get("loss_ok", True), device=device)
+    return ([feats, grad_feats, pc, grad_pc, opt_f, opt_p, *groups,
+             loss_ok], kwargs)
+
+
+def assert_bitwise_equal(got, want, what=""):
+    """Every tensor of two (nested) tuples equal bit for bit: signed zeros
+    and NaN payloads included."""
+    if isinstance(want, tuple):
+        assert len(got) == len(want), what
+        for k, (a, b) in enumerate(zip(got, want)):
+            assert_bitwise_equal(a, b, f"{what}[{k}]")
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    a, b = got.detach().cpu(), want.detach().cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    diff = int((a != b).sum())
+    assert diff == 0, f"{what}: {diff} values differ"
