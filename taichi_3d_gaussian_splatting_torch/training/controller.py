@@ -11,6 +11,13 @@ before the optimizer step; every `num_iterations_reset_alpha` steps,
 
 The masks and counts are exact functions of their inputs; the split
 positions are drawn from an explicit `torch.Generator`.
+
+A round's stages are spans under the trainer's `densify` span
+(`utils/profiling.py`): `densify/masks` (removal and candidate masks),
+`densify/assign` (free slots to candidates by rank, with the host read of
+the candidate count) and `densify/fill` (the gathers, the split shrink,
+the split draws and the clone nudge, the counts). `round_counts` adds up
+what the rounds did, once a round and on the device (`count_round`).
 """
 
 from __future__ import annotations
@@ -25,6 +32,19 @@ import torch
 from ..models.scene import GaussianPointCloudScene
 from ..ops import gaussian as G
 from ..ops.rasterizer import BackwardStats
+from ..utils.profiling import _no_mark, span
+
+# what the trainer's densify rounds did since reset_round_counts(): rounds,
+# slots filled, points pruned (transparent and floaters), filled slots that
+# are splits and that are clones; all but `rounds` are 0-d device tensors
+# once a round has counted
+round_counts = {"rounds": 0, "points_added": 0, "points_pruned": 0,
+                "splits": 0, "clones": 0}
+
+
+def reset_round_counts():
+    for name in round_counts:
+        round_counts[name] = 0
 
 
 @dataclasses.dataclass
@@ -139,9 +159,11 @@ def densify_step(
     iteration: int,
     generator: Optional[torch.Generator],
     config: AdaptiveControllerConfig,
+    mark=_no_mark,
 ) -> Tuple[GaussianPointCloudScene, ControllerState, DensifyCounts]:
     """One prune + densify round; returns the new scene, zeroed
-    accumulators and the counts. Pure: the inputs are not modified."""
+    accumulators and the counts. Pure: the inputs are not modified.
+    `mark(stage)` is called at the end of each of the round's spans."""
     n = scene.capacity
     pc = scene.point_cloud
     feats = scene.point_cloud_features
@@ -152,123 +174,143 @@ def densify_step(
     npix_frame = stats.num_affected_pixels
     mag_frame = stats.magnitude_grad_viewspace
 
-    # ---- removal masks ----
-    floater_mask = (in_frustum
-                    & (npix_frame
-                       > config.floater_near_camrea_num_pixels_threshold)
-                    & (point_depth < config.floater_depth_threshold)
-                    & valid)
-    floater_mask &= iteration > config.iteration_start_remove_floater
-    alpha = feats[:, 7]
-    nan_mask = torch.isnan(feats).any(dim=1)
-    transparent_mask = (((alpha < config.transparent_alpha_threshold)
-                         | nan_mask) & valid & ~floater_mask)
-    remove_mask = floater_mask | transparent_mask
+    with span("densify/masks", mark):
+        # ---- removal masks ----
+        floater_mask = (in_frustum
+                        & (npix_frame
+                           > config.floater_near_camrea_num_pixels_threshold)
+                        & (point_depth < config.floater_depth_threshold)
+                        & valid)
+        floater_mask &= iteration > config.iteration_start_remove_floater
+        alpha = feats[:, 7]
+        nan_mask = torch.isnan(feats).any(dim=1)
+        transparent_mask = (((alpha < config.transparent_alpha_threshold)
+                             | nan_mask) & valid & ~floater_mask)
+        remove_mask = floater_mask | transparent_mask
 
-    # ---- densify candidates ----
-    npix_f = npix_frame.to(torch.float32)
-    single_frame = (mag_frame > config
-                    .densification_view_space_position_gradients_threshold)
-    single_frame |= torch.where(
-        npix_f > 0, mag_frame / torch.clamp(npix_f, min=1.0), zero
-    ) > config.densification_view_avg_space_position_gradients_threshold
-    single_frame &= in_frustum & ~remove_mask
+        # ---- densify candidates ----
+        npix_f = npix_frame.to(torch.float32)
+        single_frame = (mag_frame > config
+                        .densification_view_space_position_gradients_threshold)
+        single_frame |= torch.where(
+            npix_f > 0, mag_frame / torch.clamp(npix_f, min=1.0), zero
+        ) > config.densification_view_avg_space_position_gradients_threshold
+        single_frame &= in_frustum & ~remove_mask
 
-    seen = state.accumulated_num_in_camera.to(torch.float32)
-    safe_seen = torch.clamp(seen, min=1.0)
-    multi_view = torch.where(seen > 0,
-                        state.accumulated_view_space_grad / safe_seen, zero)
-    multi_frame = multi_view > (
-        config.densification_multi_frame_view_space_position_gradients_threshold)
-    avg_pixels = torch.where(seen > 0, state.accumulated_num_pixels.to(
-        torch.float32) / safe_seen, zero)
-    multi_avg = torch.where(seen > 0,
-                       state.accumulated_view_space_grad_avg / safe_seen, zero)
-    multi_frame |= torch.where(
-        avg_pixels > 0, multi_avg / torch.clamp(avg_pixels, min=1e-12), zero
-    ) > (config.
-         densification_multi_frame_view_pixel_avg_space_position_gradients_threshold)
-    multi_frame |= torch.where(
-        seen > 0, state.accumulated_position_grad_norm / safe_seen, zero
-    ) > config.densification_multi_frame_position_gradients_threshold
+        seen = state.accumulated_num_in_camera.to(torch.float32)
+        safe_seen = torch.clamp(seen, min=1.0)
+        multi_view = torch.where(
+            seen > 0, state.accumulated_view_space_grad / safe_seen, zero)
+        multi_frame = multi_view > (
+            config.densification_multi_frame_view_space_position_gradients_threshold)
+        avg_pixels = torch.where(seen > 0, state.accumulated_num_pixels.to(
+            torch.float32) / safe_seen, zero)
+        multi_avg = torch.where(
+            seen > 0, state.accumulated_view_space_grad_avg / safe_seen, zero)
+        multi_frame |= torch.where(
+            avg_pixels > 0, multi_avg / torch.clamp(avg_pixels, min=1e-12),
+            zero
+        ) > (config.
+             densification_multi_frame_view_pixel_avg_space_position_gradients_threshold)
+        multi_frame |= torch.where(
+            seen > 0, state.accumulated_position_grad_norm / safe_seen, zero
+        ) > config.densification_multi_frame_position_gradients_threshold
 
-    densify_mask = (single_frame | multi_frame) & ~remove_mask & valid
-    grad_position = torch.where(seen[:, None] > 0,
-                           state.accumulated_position_grad
-                           / safe_seen[:, None], zero)
-    over_reconstructed = (state.accumulated_num_pixels
-                          > config.under_reconstructed_num_pixels_threshold)
-    size_reduction = torch.where(densify_mask & over_reconstructed,
-                            torch.full_like(alpha, math.log(
-                                config.gaussian_split_factor_phi)), zero)
+        densify_mask = (single_frame | multi_frame) & ~remove_mask & valid
+        grad_position = torch.where(
+            seen[:, None] > 0,
+            state.accumulated_position_grad / safe_seen[:, None], zero)
+        over_reconstructed = (
+            state.accumulated_num_pixels
+            > config.under_reconstructed_num_pixels_threshold)
+        size_reduction = torch.where(
+            densify_mask & over_reconstructed, torch.full_like(
+                alpha, math.log(config.gaussian_split_factor_phi)), zero)
 
-    # ---- removals, then candidates into the free slots by rank ----
-    invalid = torch.where(remove_mask, torch.ones_like(invalid), invalid)
-    src_for_dst = _rank_assignment(invalid == 1, densify_mask)
-    filled = src_for_dst >= 0
-    src = torch.clamp(src_for_dst, min=0)
-    # the candidates that got a slot (there may be fewer slots)
-    fillable_src_mask = torch.zeros((n,), dtype=torch.bool, device=pc.device)
-    fillable_src_mask[src[filled]] = True
+    with span("densify/assign", mark):
+        # ---- removals, then candidates into the free slots by rank ----
+        invalid = torch.where(remove_mask, torch.ones_like(invalid), invalid)
+        src_for_dst = _rank_assignment(invalid == 1, densify_mask)
+        filled = src_for_dst >= 0
+        src = torch.clamp(src_for_dst, min=0)
+        # the candidates that got a slot (there may be fewer slots)
+        fillable_src_mask = torch.zeros((n,), dtype=torch.bool,
+                                        device=pc.device)
+        fillable_src_mask[src[filled]] = True
 
-    # a new point starts from its source's position before the optimizer
-    new_pc = torch.where(filled[:, None], position_before_optimizer[src], pc)
-    new_feats = torch.where(filled[:, None], feats[src], feats)
-    new_obj = torch.where(filled, scene.point_object_id[src],
-                     scene.point_object_id)
+    with span("densify/fill", mark):
+        # a new point starts from its source's position before the optimizer
+        new_pc = torch.where(filled[:, None],
+                             position_before_optimizer[src], pc)
+        new_feats = torch.where(filled[:, None], feats[src], feats)
+        new_obj = torch.where(filled, scene.point_object_id[src],
+                              scene.point_object_id)
 
-    # split: both copies shrink (only candidates that got a slot)
-    red_src = size_reduction[src]
-    new_feats = new_feats.clone()
-    new_feats[:, 4:7] -= torch.where(filled, red_src, zero)[:, None]
-    new_feats[:, 4:7] -= torch.where(fillable_src_mask, size_reduction,
-                                zero)[:, None]
+        # split: both copies shrink (only candidates that got a slot)
+        red_src = size_reduction[src]
+        new_feats = new_feats.clone()
+        new_feats[:, 4:7] -= torch.where(filled, red_src, zero)[:, None]
+        new_feats[:, 4:7] -= torch.where(fillable_src_mask, size_reduction,
+                                         zero)[:, None]
 
-    split_dst = filled & (red_src > 1e-6)
-    clone_dst = filled & (red_src <= 1e-6)
-    if config.enable_sample_from_point:
-        # split: resample both copies from the shrunken gaussian, each with
-        # its own draw; the new copy around its source's current position,
-        # the original around its own
-        dst_samples = G.sample_from_gaussian(
-            pc[src], new_feats[:, 0:4], new_feats[:, 4:7], generator)
-        new_pc = torch.where(split_dst[:, None], dst_samples, new_pc)
-        split_src = fillable_src_mask & (size_reduction > 1e-6)
-        src_samples = G.sample_from_gaussian(
-            new_pc, new_feats[:, 0:4], new_feats[:, 4:7], generator)
-        new_pc = torch.where(split_src[:, None], src_samples, new_pc)
-        # clone: nudge the new copy along the accumulated gradient
-        new_pc = new_pc + torch.where(
-            clone_dst[:, None],
-            grad_position[src] * config.under_reconstructed_move_factor,
-            zero)
+        split_dst = filled & (red_src > 1e-6)
+        clone_dst = filled & (red_src <= 1e-6)
+        if config.enable_sample_from_point:
+            # split: resample both copies from the shrunken gaussian, each
+            # with its own draw; the new copy around its source's current
+            # position, the original around its own
+            dst_samples = G.sample_from_gaussian(
+                pc[src], new_feats[:, 0:4], new_feats[:, 4:7], generator)
+            new_pc = torch.where(split_dst[:, None], dst_samples, new_pc)
+            split_src = fillable_src_mask & (size_reduction > 1e-6)
+            src_samples = G.sample_from_gaussian(
+                new_pc, new_feats[:, 0:4], new_feats[:, 4:7], generator)
+            new_pc = torch.where(split_src[:, None], src_samples, new_pc)
+            # clone: nudge the new copy along the accumulated gradient
+            new_pc = new_pc + torch.where(
+                clone_dst[:, None],
+                grad_position[src] * config.under_reconstructed_move_factor,
+                zero)
 
-    if config.enable_ellipsoid_offset:
-        offset = G.ellipsoid_foci_vector(new_feats[:, 0:4],
-                                         new_feats[:, 4:7])
-        new_pc = new_pc + torch.where(filled[:, None], offset, zero)
-        new_pc = new_pc - torch.where(fillable_src_mask[:, None], offset, zero)
+        if config.enable_ellipsoid_offset:
+            offset = G.ellipsoid_foci_vector(new_feats[:, 0:4],
+                                             new_feats[:, 4:7])
+            new_pc = new_pc + torch.where(filled[:, None], offset, zero)
+            new_pc = new_pc - torch.where(fillable_src_mask[:, None],
+                                          offset, zero)
 
-    invalid = torch.where(filled, torch.zeros_like(invalid), invalid)
+        invalid = torch.where(filled, torch.zeros_like(invalid), invalid)
 
-    def count(mask):
-        return mask.to(torch.int32).sum(dtype=torch.int32)
+        def count(mask):
+            return mask.to(torch.int32).sum(dtype=torch.int32)
 
-    counts = DensifyCounts(
-        num_transparent=count(transparent_mask),
-        num_floaters=count(floater_mask),
-        num_candidates=count(densify_mask),
-        num_fillable=count(filled),
-        num_over_reconstructed=count(split_dst),
-        num_valid_after=count(invalid == 0),
-        floater_mask=floater_mask,
-        over_reconstructed_mask=densify_mask & over_reconstructed,
-        under_reconstructed_mask=densify_mask & ~over_reconstructed,
-    )
+        counts = DensifyCounts(
+            num_transparent=count(transparent_mask),
+            num_floaters=count(floater_mask),
+            num_candidates=count(densify_mask),
+            num_fillable=count(filled),
+            num_over_reconstructed=count(split_dst),
+            num_valid_after=count(invalid == 0),
+            floater_mask=floater_mask,
+            over_reconstructed_mask=densify_mask & over_reconstructed,
+            under_reconstructed_mask=densify_mask & ~over_reconstructed,
+        )
     new_scene = GaussianPointCloudScene(
         point_cloud=new_pc, point_cloud_features=new_feats,
         point_invalid_mask=invalid, point_object_id=new_obj)
     return new_scene, ControllerState.zeros(n, pc.device), counts
+
+
+def count_round(counts: DensifyCounts):
+    """Add a round's counts to `round_counts`, on the counts' device: no
+    host read (a count becomes a 0-d tensor there; `int()` reads it)."""
+    added = counts.num_fillable
+    round_counts["rounds"] += 1
+    round_counts["points_added"] += added
+    round_counts["points_pruned"] += (counts.num_transparent
+                                      + counts.num_floaters)
+    round_counts["splits"] += counts.num_over_reconstructed
+    round_counts["clones"] += added - counts.num_over_reconstructed
 
 
 def reset_alpha(scene: GaussianPointCloudScene,

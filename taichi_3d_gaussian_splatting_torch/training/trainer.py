@@ -26,10 +26,13 @@ learning rates multiplied by 1, sqrt(B) or B (`_scale_schedules_for_batch`);
 `scale_betas_with_batch` raises Adam's betas to the power B. Only rank 0
 writes metrics, parquets and checkpoints and runs the validation.
 
-Around the steps: densify every `num_iterations_densify` after warm-up
-from the trigger step's pre-optimizer positions, alpha reset every
-`num_iterations_reset_alpha`, coarse-to-fine downsampling (halved every
-`half_downsample_factor_interval`), the SH-band curriculum, a loss-spike
+Around the steps, what depends on the iteration alone is one method,
+`train_iteration`: the SH-band curriculum, densify every
+`num_iterations_densify` after warm-up from the trigger step's
+pre-optimizer positions (span `densify`), alpha reset every
+`num_iterations_reset_alpha` (span `reset alpha`). `train()` feeds it the
+views and keeps the rest: coarse-to-fine downsampling (halved every
+`half_downsample_factor_interval`), the view stream, a loss-spike
 detector, validation every `val_interval` (and at 5000 and 7000) writing
 `scene_{it}.parquet`, `best_scene.parquet` and a full checkpoint, and
 resume from that checkpoint.
@@ -81,7 +84,8 @@ from .adam_cuda import (combine_feature_gradients, keep_if_ok,
 from .adam_cuda import contain_gradients  # noqa: F401 (imported from here)
 from .checkpoint import load_checkpoint, save_checkpoint
 from .controller import (AdaptiveControllerConfig, ControllerState,
-                         densify_step, reset_alpha, update_stats)
+                         count_round, densify_step, reset_alpha,
+                         update_stats)
 from .loss import LossFunction, LossFunctionConfig
 from .ssim import psnr as psnr_fn
 
@@ -364,6 +368,8 @@ class StepOutput(NamedTuple):
     #                        point_uv) of the step's (last) view
     maps: tuple            # (clipped render (H, W, 3), depth (H, W),
     #                        valid point count (H, W)) of that view
+    densify_counts: object = None  # the iteration's round's DensifyCounts
+    #                                (`train_iteration`), if one ran
 
 
 class GaussianPointCloudTrainer:
@@ -453,18 +459,30 @@ class GaussianPointCloudTrainer:
         """Restore what `save` wrote; training resumes at its iteration."""
         arrays, self.start_iteration, self.best_psnr_score = \
             load_checkpoint(path)
+        self.load_state(arrays)
+
+    def load_state(self, arrays: dict):
+        """Put back the state `state_arrays` names, from numpy arrays or
+        tensors, copied; the next view starts a new permutation, as a
+        resumed `train()` does."""
         dev = self.device
 
+        def copy(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(dev, copy=True)
+            return torch.tensor(v, device=dev)
+
         def group(prefix, cls):
-            return cls(*(torch.tensor(arrays[f"{prefix}.{f}"], device=dev)
-                         for f in cls._fields))
+            return cls(*(copy(arrays[f"{prefix}.{f}"]) for f in cls._fields))
 
         self.scene = group("scene", GaussianPointCloudScene)
         self.opt_features = group("adam_features", AdamState)
         self.opt_positions = group("adam_positions", AdamState)
         self.ctrl_state = group("controller", ControllerState)
-        self.generator.set_state(torch.tensor(arrays["generator"]))
-        self.data_generator.set_state(torch.tensor(arrays["data_generator"]))
+        self.generator.set_state(torch.as_tensor(arrays["generator"]))
+        self.data_generator.set_state(
+            torch.as_tensor(arrays["data_generator"]))
+        self._pos = len(self.train_dataset)
 
     # ------------------------------------------------------------------
     # one step
@@ -618,7 +636,6 @@ class GaussianPointCloudTrainer:
 
     def train(self):
         config = self.config
-        ctrl_cfg = config.adaptive_controller_config
         loader = stream = None
         cache = None
         cache_factor = -1
@@ -654,8 +671,6 @@ class GaussianPointCloudTrainer:
                 if (iteration % config.half_downsample_factor_interval == 0
                         and iteration > 0 and downsample_factor > 1):
                     downsample_factor //= 2
-                sh_band = (iteration
-                           // config.increase_color_max_sh_band_interval)
                 if (config.cache_dataset_on_device
                         and cache_factor != downsample_factor):
                     cache = self._device_cache(self.train_dataset,
@@ -666,30 +681,10 @@ class GaussianPointCloudTrainer:
                     loader = PrefetchLoader(self.train_dataset, shuffle=True,
                                             num_workers=4, seed=config.seed)
                     stream = iter(loader)
-                densify_due = (iteration >= ctrl_cfg.num_iterations_warm_up
-                               and iteration
-                               % ctrl_cfg.num_iterations_densify == 0)
-                # a copy: densify seeds new points from the positions
-                # before this step's optimizer update
-                pos_before = (self.scene.point_cloud.clone() if densify_due
-                              else None)
                 images, qs, ts, intrs, cam = self._next_views(
                     cache, stream, downsample_factor, config.batch_size)
-                if config.batch_size == 1:
-                    out = self.step(images[0], qs[0], ts[0], sh_band,
-                                    dataclasses.replace(
-                                        cam, camera_intrinsics=intrs[0]))
-                else:
-                    out = self.batch_step(images, qs, ts, intrs, sh_band,
-                                          cam)
-
-                if densify_due:
-                    with span("densify"):
-                        self._densify(iteration, out, pos_before, cam)
-                if (iteration >= ctrl_cfg.num_iterations_warm_up
-                        and iteration
-                        % ctrl_cfg.num_iterations_reset_alpha == 0):
-                    self.scene = reset_alpha(self.scene, ctrl_cfg)
+                out = self.train_iteration(iteration, images, qs, ts, intrs,
+                                           cam)
                 if not self.is_main:
                     continue
 
@@ -726,31 +721,74 @@ class GaussianPointCloudTrainer:
             if loader is not None:
                 loader.close()
 
-    def _densify(self, iteration, out, pos_before, cam):
+    def train_iteration(self, iteration: int, images: torch.Tensor,
+                        qs: torch.Tensor, ts: torch.Tensor, intrs, cam,
+                        mark=_no_mark) -> StepOutput:
+        """Iteration `iteration` of the schedule on its views, as
+        `_next_views` gives them: the step at the curriculum's SH band
+        (single-view, or `batch_step` with `batch_size` > 1), then, where
+        due, a densify round in the span `densify` seeded from the
+        positions before the step's optimizer update, and an alpha reset in
+        the span `reset alpha`. `mark` as in `step`, called also at the end
+        of each of these spans and of the round's own."""
+        config = self.config
+        ctrl_cfg = config.adaptive_controller_config
+        sh_band = iteration // config.increase_color_max_sh_band_interval
+        after_warm_up = iteration >= ctrl_cfg.num_iterations_warm_up
+        densify_due = (after_warm_up
+                       and iteration % ctrl_cfg.num_iterations_densify == 0)
+        # a copy: densify seeds new points from the positions before this
+        # step's optimizer update
+        pos_before = (self.scene.point_cloud.clone() if densify_due
+                      else None)
+        if config.batch_size == 1:
+            out = self.step(images[0], qs[0], ts[0], sh_band,
+                            dataclasses.replace(cam,
+                                                camera_intrinsics=intrs[0]),
+                            mark=mark)
+        else:
+            out = self.batch_step(images, qs, ts, intrs, sh_band, cam,
+                                  mark=mark)
+        if densify_due:
+            with span("densify", mark):
+                out = out._replace(densify_counts=self._densify(
+                    iteration, out, pos_before, cam, mark))
+        if (after_warm_up
+                and iteration % ctrl_cfg.num_iterations_reset_alpha == 0):
+            with span("reset alpha", mark):
+                self.scene = reset_alpha(self.scene, ctrl_cfg)
+        return out
+
+    def _densify(self, iteration, out, pos_before, cam, mark=_no_mark):
         ctrl_cfg = self.config.adaptive_controller_config
         stats, in_frustum, point_depth, point_uv = out.densify_inputs
         self._log_histograms(iteration, stats)
         self.scene, self.ctrl_state, counts = densify_step(
             self.scene, self.ctrl_state, stats, in_frustum, point_depth,
-            pos_before, iteration, self.generator, ctrl_cfg)
-        if (self.logger.tb is not None
-                and iteration % ctrl_cfg.plot_densify_interval == 0):
-            from ..utils.visualization import densify_scatter_figure
-            img = densify_scatter_figure(
-                point_uv.cpu().numpy(), counts.floater_mask.cpu().numpy(),
-                counts.over_reconstructed_mask.cpu().numpy(),
-                counts.under_reconstructed_mask.cpu().numpy(),
-                cam.camera_height, cam.camera_width)
-            if img is not None:
-                self.logger.image(iteration, "densify/scatter", img)
-        self.logger.scalars(iteration, {
-            "densify/num_transparent": counts.num_transparent,
-            "densify/num_floaters": counts.num_floaters,
-            "densify/num_candidates": counts.num_candidates,
-            "densify/num_fillable": counts.num_fillable,
-            "densify/num_over_reconstructed": counts.num_over_reconstructed,
-            "value/num_valid_points": counts.num_valid_after,
-        })
+            pos_before, iteration, self.generator, ctrl_cfg, mark)
+        with span("densify/log", mark):
+            count_round(counts)
+            if (self.logger.tb is not None
+                    and iteration % ctrl_cfg.plot_densify_interval == 0):
+                from ..utils.visualization import densify_scatter_figure
+                img = densify_scatter_figure(
+                    point_uv.cpu().numpy(),
+                    counts.floater_mask.cpu().numpy(),
+                    counts.over_reconstructed_mask.cpu().numpy(),
+                    counts.under_reconstructed_mask.cpu().numpy(),
+                    cam.camera_height, cam.camera_width)
+                if img is not None:
+                    self.logger.image(iteration, "densify/scatter", img)
+            self.logger.scalars(iteration, {
+                "densify/num_transparent": counts.num_transparent,
+                "densify/num_floaters": counts.num_floaters,
+                "densify/num_candidates": counts.num_candidates,
+                "densify/num_fillable": counts.num_fillable,
+                "densify/num_over_reconstructed":
+                    counts.num_over_reconstructed,
+                "value/num_valid_points": counts.num_valid_after,
+            })
+        return counts
 
     def _flush_metrics(self, pending, recent_losses) -> bool:
         """Bring the queued per-step metrics to the host in one copy, run

@@ -235,7 +235,8 @@ def test_trace_window_holds_the_spans_under_its_iterations(dataset,
                                                            tmp_path):
     """Iterations 4 and 5 traced, densify at 5: every stage span lies in
     an `iteration i` range, each range holds one `step`, the 5th also
-    `densify`; outside the window the spans are off again."""
+    `densify` and the round's stages; outside the window the spans are off
+    again."""
     trainer = _trainer(dataset, summary_writer_log_dir=str(tmp_path),
                        num_iterations=7, val_interval=10 ** 6,
                        enable_profiler=True, profiler_start_iteration=4,
@@ -261,7 +262,8 @@ def test_trace_window_holds_the_spans_under_its_iterations(dataset,
         held[inside[0]].append(s["name"][len(P.SPAN_PREFIX):])
     assert sorted(set(held["iteration 4"])) == sorted(STEP)
     assert sorted(set(held["iteration 5"])) == sorted(
-        list(STEP) + ["densify"])
+        list(STEP) + ["densify", "densify/masks", "densify/assign",
+                      "densify/fill", "densify/log"])
     assert held["iteration 4"].count("step") == 1
     s = P.summarize_trace(events)["stages"]
     assert s["spans"]["step"]["calls_per_range"] == 1.0
