@@ -50,6 +50,12 @@ Phases (any failure exits non-zero; nothing is caught):
      identical, its columns and P2's gradients within the stated
      tolerances, the same non-finite gradient rows; each kernel's and
      plain version's device time and the bound;
+  3e. the image loss kernel (csrc/image_loss.cu) against its plain version
+     on the card at 976x544 (image_loss_phase): the loss terms and the
+     gradient within LOSS_RTOL / LOSS_ATOL, the clamped render exactly, a
+     second call bit for bit; its device time by the profiler, a call's
+     by CUDA events, the plain version's, the bounds by bytes and by
+     operations;
   5. training path: a 4-view 976x544 dataset rendered by the port from the
      430k scene, an init parquet of its jittered positions, and the port's
      `GaussianPointCloudTrainer(...).train()` for 30 iterations with
@@ -375,14 +381,16 @@ def fail(msg):
 
 
 def reset_launch_counts():
-    """Every kernel wrapper's launch count to 0 (blend, projection and
-    optimizer)."""
+    """Every kernel wrapper's launch count to 0 (blend, projection,
+    optimizer and image loss)."""
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
     from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
+    from taichi_3d_gaussian_splatting_torch.training import loss_cuda as TLC
     BC.reset_launch_counts()
     PC.reset_launch_counts()
     TA.reset_launch_counts()
+    TLC.reset_launch_counts()
 
 
 def launch_counts():
@@ -390,7 +398,9 @@ def launch_counts():
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
     from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
-    return {**BC.launch_counts, **PC.launch_counts, **TA.launch_counts}
+    from taichi_3d_gaussian_splatting_torch.training import loss_cuda as TLC
+    return {**BC.launch_counts, **PC.launch_counts, **TA.launch_counts,
+            **TLC.launch_counts}
 
 
 def check_projection_launches(launches, label, fail):
@@ -401,6 +411,15 @@ def check_projection_launches(launches, label, fail):
             or launches["project_backward"] != launches["blend_backward"]):
         fail(f"{label}: the projection kernels did not launch once per frame "
              f"and step: {launches}")
+
+
+def check_loss_launches(launches, label, fail):
+    """The image loss kernel once per training view (as K3) and once per
+    validation view (K2 renders both)."""
+    if not (launches["blend_backward"] <= launches["image_loss"]
+            <= launches["blend_forward"]):
+        fail(f"{label}: the image loss kernel did not launch once per "
+             f"training and validation view: {launches}")
 
 
 def bench_scene(n, seed=0):
@@ -608,6 +627,7 @@ def train_phase(paths, root, card, fail):
             or launches["blend_backward"] < TRAIN_ITERATIONS):
         fail(f"training did not launch K2 and K3 once per step: {launches}")
     check_projection_launches(launches, "training", fail)
+    check_loss_launches(launches, "training", fail)
 
     losses, psnr = check_run(logs, TRAIN_ITERATIONS, fail)
     print(f"training [{W}x{H}, 430k synthetic, 4 views]: "
@@ -697,6 +717,7 @@ def batch_train_phase(paths, root, card, fail):
             fail(f"batch training did not launch K2 and K3 once per view "
                  f"({views} views): {launches}")
         check_projection_launches(launches, "batch training", fail)
+        check_loss_launches(launches, "batch training", fail)
         losses, psnr = check_run(logs, BATCH_ITERATIONS, fail)
         print("batch training losses: " + ", ".join(f"{x:.5f}"
                                                     for x in losses),
@@ -1075,6 +1096,89 @@ def optimizer_phase(card, fail):
     return out
 
 
+# phase 3e: the image loss kernel. It replaces no Pallas kernel: the JAX
+# package leaves the loss and its gradient to XLA.
+IMAGE_LOSS_SOURCE = "taichi_3d_gaussian_splatting_torch/csrc/image_loss.cu"
+# a value (pixel and channel) reads the render and the ground truth and
+# writes the gradient and the clamped render; about 400 operations: the
+# five blurs' two 11-tap passes (220), the three transposed blurs' (132),
+# the SSIM map, its derivatives and the L1 term (~45)
+IMAGE_LOSS_BYTES, IMAGE_LOSS_OPS = 16, 400
+# the tolerances of tests/test_torch_cuda.py, on the values and on the
+# gradient of the pixels' sum (3 H W dL/dx: dL/dx itself is ~1e-6)
+LOSS_RTOL, LOSS_ATOL = 2e-3, 1e-4
+
+
+def image_loss_phase(card, fail):
+    """Phase 3e: the image loss kernel against its plain version on the
+    card at 976x544 (tests/torch_train_fixtures.py loss_images: values
+    outside [0, 1], ties, exact 0 and 1): the loss, L1 and 1 - SSIM and
+    the gradient of the pixels' sum at LOSS_RTOL / LOSS_ATOL, the clamped
+    render exactly, a second call bit for bit the first; then the kernels'
+    device time a call (torch.profiler over 20 calls: the tile kernel and
+    the sums' launch), a call's time by CUDA events (20 calls, the
+    wrapper's allocations included) and the plain version's, beside the
+    bound. Returns (kernel ms, plain ms, bound ms, bound by, max |err| of
+    the scaled gradient)."""
+    import torch
+    from torch_train_fixtures import assert_bitwise_equal, loss_images
+    from taichi_3d_gaussian_splatting_torch.training import loss_cuda as TLC
+    lam = 0.2
+    render, gt = loss_images(H, W, seed=11, device="cuda")
+    before = TLC.launch_counts["image_loss"]
+    got = TLC.image_loss(render, gt, lam)
+    torch.cuda.synchronize()
+    if TLC.launch_counts["image_loss"] != before + 1:
+        fail("image loss kernel: not one launch a call")
+    want = TLC.image_loss_torch(render, gt, lam)
+    n = render.numel()
+    for name in ("loss", "l1", "ssim_loss"):
+        a, b = float(getattr(got, name)), float(getattr(want, name))
+        if not abs(a - b) <= LOSS_ATOL + LOSS_RTOL * abs(b):
+            fail(f"image loss kernel: {name} {a!r}, plain {b!r}")
+    g, ref = (got.grad.double() * n).cpu(), (want.grad.double() * n).cpu()
+    err = (g - ref).abs()
+    if not bool((err <= LOSS_ATOL + LOSS_RTOL * ref.abs()).all()):
+        fail(f"image loss kernel: gradient of the pixels' sum off by up to "
+             f"{float(err.max()):.3g} (plain's largest "
+             f"{float(ref.abs().max()):.3g})")
+    if not torch.equal(got.image, want.image):
+        fail("image loss kernel: the clamped render differs")
+    try:
+        assert_bitwise_equal(tuple(TLC.image_loss(render, gt, lam)),
+                             tuple(got), "a second call")
+    except AssertionError as e:
+        fail(f"image loss kernel: {e}")
+    reps = 20
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            TLC.image_loss(render, gt, lam)
+        torch.cuda.synchronize()
+    device_us = sum(e.device_time_total for e in prof.key_averages()
+                    if "image_loss" in e.key)
+    k_ms = device_us / 1e3 / reps
+    call_ms = time_ms(lambda: TLC.image_loss(render, gt, lam), reps)
+    p_ms = time_ms(lambda: TLC.image_loss_torch(render, gt, lam), 5,
+                   warmup=1)
+    bytes_ms = n * IMAGE_LOSS_BYTES / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n * IMAGE_LOSS_OPS / PEAK_FLOPS * 1e3
+    bound, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    print(f"image loss kernel at {W}x{H}: loss {float(got.loss)!r} (plain "
+          f"{float(want.loss)!r}), L1 {float(got.l1)!r} ({float(want.l1)!r}),"
+          f" 1 - SSIM {float(got.ssim_loss)!r} ({float(want.ssim_loss)!r});"
+          f" gradient of the pixels' sum max |err| {float(err.max()):.3g} "
+          f"(largest {float(ref.abs().max()):.3g}); kernels {k_ms:.4f} ms a "
+          f"call by the profiler, a call {call_ms:.4f} ms by CUDA events, "
+          f"plain {p_ms:.4f} ms; bound {bytes_ms:.4f} ms by bytes "
+          f"({IMAGE_LOSS_BYTES} a value), {ops_ms:.4f} ms by operations "
+          f"({IMAGE_LOSS_OPS} a value): {100.0 * bound / k_ms:.1f}% of the "
+          f"{by} bound ({card})", flush=True)
+    if device_us <= 0:
+        fail("image loss kernel: the profiler saw no device time")
+    return k_ms, p_ms, bound, by, float(err.max())
+
+
 def projection_bound(name, n, num_objects):
     """(bound ms, "bytes" or "operations") of kernel `name` on n points."""
     per_point = PROJECTION_BYTES[name] + (4 if num_objects > 1 else 0)
@@ -1450,7 +1554,8 @@ def bench_phase(phase4_ms, fail):
 def check_training_launches(label, fail):
     """Every kernel of the training path launched since the last reset,
     P1 once per frame, P2 and the optimizer kernel once per single-view
-    step; returns the counts."""
+    step, the image loss kernel once per training and validation view;
+    returns the counts."""
     launches = launch_counts()
     if min(launches["blend_forward"], launches["blend_backward"]) < 1:
         fail(f"{label}: a kernel of the training path was never launched: "
@@ -1459,6 +1564,7 @@ def check_training_launches(label, fail):
     if launches["optimizer_update"] != launches["blend_backward"]:
         fail(f"{label}: the optimizer kernel did not launch once per step: "
              f"{launches}")
+    check_loss_launches(launches, label, fail)
     return launches
 
 
@@ -2763,6 +2869,10 @@ def main():
     # ---- 3d. the optimizer kernel vs its plain version on the card -----
     opt_ms, opt_plain, opt_bound = optimizer_phase(card, fail)
 
+    # ---- 3e. the image loss kernel vs its plain version on the card ----
+    loss_ms, loss_plain, loss_bound, loss_by, loss_err = image_loss_phase(
+        card, fail)
+
     # ---- 4. main path ---------------------------------------------------
     cfg_rgb = RasterizerConfig(**cfg_main, rgb_only=True)
     cfg_full = RasterizerConfig(**cfg_main, rgb_only=False)
@@ -2937,6 +3047,12 @@ def main():
                     "max_abs_err": 0.0, "ms": opt_ms, "plain_ms": opt_plain,
                     "bound_ms": opt_bound, "bound_by": "bytes",
                     "library_ms": None})
+    kernels.append({"name": "image_loss", "route": "cuda",
+                    "source": IMAGE_LOSS_SOURCE, "replaces": None,
+                    "launches": train_launches["image_loss"],
+                    "max_abs_err": loss_err, "ms": loss_ms,
+                    "plain_ms": loss_plain, "bound_ms": loss_bound,
+                    "bound_by": loss_by, "library_ms": None})
     kernels += probe_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,6 +99,11 @@ def _declare(lib):
     group = ctypes.POINTER(AdamGroupArgs)
     fn.argtypes = [i] + [p] * 11 + [group, group] + [p] * 10
     fn.restype = i
+    fn = lib.t3dgs_image_loss
+    # render, gt, h, w, c_l1, c_ssim, one_minus_lambda, lambda, grad,
+    # clamped, partials, scratch, out, stream
+    fn.argtypes = [p, p, i, i, f, f, f, f, p, p, p, i, p, p]
+    fn.restype = i
     return lib
 
 

@@ -1,5 +1,7 @@
 """Training loss: L = (1 - lambda) L1 + lambda (1 - SSIM), plus an optional
-scale regularizer."""
+scale regularizer. The training step and validation take the image terms
+through `loss_cuda.image_loss` (one kernel on the card); `image_terms` is
+their plain form."""
 
 from __future__ import annotations
 
@@ -17,6 +19,15 @@ class LossFunctionConfig:
     regularization_weight: float = 2.0
 
 
+def image_terms(predicted_image, ground_truth_image, lambda_value):
+    """The image terms of the loss: ((1 - lambda) L1 + lambda (1 - SSIM),
+    L1, 1 - SSIM) of channel-last images."""
+    l1 = torch.abs(predicted_image - ground_truth_image).mean()
+    ld_ssim = 1.0 - ssim(predicted_image, ground_truth_image, data_range=1.0)
+    loss = (1.0 - lambda_value) * l1 + lambda_value * ld_ssim
+    return loss, l1, ld_ssim
+
+
 class LossFunction:
     def __init__(self, config: LossFunctionConfig):
         self.config = config
@@ -26,17 +37,19 @@ class LossFunction:
         """Images are channel-last (H, W, 3) in [0, 1].
 
         Returns (L, L1, 1 - SSIM)."""
-        l1 = torch.abs(predicted_image - ground_truth_image).mean()
-        ld_ssim = 1.0 - ssim(predicted_image, ground_truth_image,
-                             data_range=1.0)
-        loss = ((1.0 - self.config.lambda_value) * l1
-                + self.config.lambda_value * ld_ssim)
+        loss, l1, ld_ssim = image_terms(predicted_image, ground_truth_image,
+                                        self.config.lambda_value)
         if (pointcloud_features is not None
                 and self.config.enable_regularization):
-            loss = loss + (self.config.regularization_weight
-                           * self._regularization_loss(point_invalid_mask,
-                                                       pointcloud_features))
+            loss = loss + self.regularization_term(point_invalid_mask,
+                                                   pointcloud_features)
         return loss, l1, ld_ssim
+
+    def regularization_term(self, point_invalid_mask, pointcloud_features):
+        """The regularizer as the loss adds it (weight included)."""
+        return (self.config.regularization_weight
+                * self._regularization_loss(point_invalid_mask,
+                                            pointcloud_features))
 
     @staticmethod
     def _regularization_loss(point_invalid_mask, pointcloud_features):

@@ -7,6 +7,10 @@ reduced precision the variances go negative by several times the
 stabilizer C2. cuDNN runs float32 convolutions in TF32 by default on
 Ampere and later, so the blur turns TF32 off around its own forward and
 backward convolutions, whatever the caller's setting.
+
+The training step and validation take SSIM on the card through
+`loss_cuda.image_loss`'s kernel, which keeps these conventions; this
+module is its plain version's.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ Each step, on one view (`view_gradients`):
 - re-normalize the stored quaternions (outside autograd);
 - render with `rasterize_with_vjp` (projection, binning, the forward blend
   kernel);
-- L1 + SSIM (+ the scale regularizer) on the image clipped to [0, 1];
+- L1 + SSIM on the image clipped to [0, 1] and their gradient with
+  respect to the render, `training/loss_cuda.py::image_loss` (one kernel
+  on the card), plus the scale regularizer by autograd when it is on;
 - the backward blend kernel, per-point routing and autograd through the
   projection (`vjp_fn`); the rasterizer-path feature gradients are scaled
   per group (`_grad_group_scale`) and masked to the active SH bands, and
@@ -87,6 +89,7 @@ from .controller import (AdaptiveControllerConfig, ControllerState,
                          count_round, densify_step, reset_alpha,
                          update_stats)
 from .loss import LossFunction, LossFunctionConfig
+from .loss_cuda import image_loss
 from .ssim import psnr as psnr_fn
 
 
@@ -259,28 +262,30 @@ def view_gradients(scene, feats, image_gt, q, t, camera_info, raster_config,
                    loss_fn, grad_scale, band_mask,
                    mark=_no_mark) -> ViewGradients:
     """Render one view with `feats` (quaternions normalized), take the loss
-    on the image clipped to [0, 1] and its gradients with respect to the
-    image and, for the regularizer, the features, then the rasterizer's VJP.
-    The rasterizer-path feature gradients are scaled per group and masked
-    to the active SH bands; the regularizer's are added unscaled."""
+    on the image clipped to [0, 1] and its gradient with respect to the
+    render (`image_loss`) and, by autograd, the regularizer's with respect
+    to the features when it is on, then the rasterizer's VJP. The
+    rasterizer-path feature gradients are scaled per group and masked to
+    the active SH bands; the regularizer's are added unscaled."""
     result, vjp_fn = rasterize_with_vjp(
         scene.point_cloud, feats, scene.point_invalid_mask,
         scene.point_object_id, q, t, camera_info, raster_config, mark=mark)
     with span("loss", mark):
-        image = result.image.detach().requires_grad_(True)
-        feats_leaf = feats.detach().requires_grad_(True)
-        with torch.enable_grad():
-            img = torch.clamp(image, 0.0, 1.0)
-            loss, l1, ld_ssim = loss_fn(
-                img, image_gt, point_invalid_mask=scene.point_invalid_mask,
-                pointcloud_features=feats_leaf)
-            g_image, g_feats_direct = torch.autograd.grad(
-                loss, (image, feats_leaf), allow_unused=True)
+        terms = image_loss(result.image, image_gt,
+                           loss_fn.config.lambda_value)
+        loss, g_feats_direct = terms.loss, None
+        if loss_fn.config.enable_regularization:
+            feats_leaf = feats.detach().requires_grad_(True)
+            with torch.enable_grad():
+                reg = loss_fn.regularization_term(scene.point_invalid_mask,
+                                                  feats_leaf)
+                g_feats_direct, = torch.autograd.grad(reg, feats_leaf)
+            loss = loss + reg.detach()
 
-    grad_pc, grad_feats_raster, stats = vjp_fn(g_image)
-    return ViewGradients(loss.detach(), l1.detach(), ld_ssim.detach(),
-                         img.detach(), grad_pc, grad_feats_raster,
-                         g_feats_direct, grad_scale, band_mask, stats, result)
+    grad_pc, grad_feats_raster, stats = vjp_fn(terms.grad)
+    return ViewGradients(loss, terms.l1, terms.ssim_loss, terms.image,
+                         grad_pc, grad_feats_raster, g_feats_direct,
+                         grad_scale, band_mask, stats, result)
 
 
 def _downsample_item(item: DatasetItem, factor: int) -> DatasetItem:
@@ -928,7 +933,8 @@ class GaussianPointCloudTrainer:
                 img = torch.clamp(rasterize(
                     *self.scene, q, t, cam,
                     config.rasterisation_config).image, 0.0, 1.0)
-                loss, _, ld_ssim = self.loss_fn(img, gt)
+                loss, _, ld_ssim = image_loss(
+                    img, gt, self.loss_fn.config.lambda_value)[:3]
                 per_view.append(torch.stack([loss, psnr_fn(img, gt),
                                              1.0 - ld_ssim]))
                 if config.log_validation_image and self.logger.tb is not None:

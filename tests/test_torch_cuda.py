@@ -1,6 +1,6 @@
 """The CUDA blend kernels (forward and backward), projection kernels
-(P1, P2) and optimizer kernel against their plain PyTorch versions on the
-card; one training step, two batch steps and the viewer's frames on the
+(P1, P2), optimizer kernel and image loss kernel against their plain
+PyTorch versions on the card; one training step, two batch steps and the viewer's frames on the
 card against the same on the CPU.
 
 Marked `cuda`: skips without a card. Run on a machine with an H100 as
@@ -26,6 +26,7 @@ from taichi_3d_gaussian_splatting_torch.ops.sh import sh_band_mask
 from taichi_3d_gaussian_splatting_torch.ops.tiling import blend_slab
 from taichi_3d_gaussian_splatting_torch.ops.transforms import inverse_SE3_qt
 from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
+from taichi_3d_gaussian_splatting_torch.training import loss_cuda as TLC
 
 from torch_chunk_fixtures import (BOUNDARY_OFFSET, NUM_TILES, TILES_PER_ROW,
                                   long_segment_slab, shifted_slab)
@@ -33,8 +34,9 @@ from torch_port_fixtures import (AB_CASES, ATOL, RTOL, assert_counts_close,
                                  camera_intrinsics, identity_pose,
                                  random_scene)
 from torch_train_fixtures import (OPTIMIZER_CASES, assert_bitwise_equal,
-                                  batch_step_state, one_step_state,
-                                  optimizer_inputs, write_dataset)
+                                  batch_step_state, config_dict, loss_images,
+                                  one_step_state, optimizer_inputs,
+                                  write_dataset)
 
 pytestmark = pytest.mark.cuda
 
@@ -393,6 +395,72 @@ def test_optimizer_kernel_launches_once_a_step(cuda, tmp_path):
     assert TA.launch_counts["optimizer_update"] == before + 3
 
 
+@pytest.mark.parametrize("h, w", [(544, 976), (45, 77)])
+def test_image_loss_kernel_matches_plain(cuda, h, w):
+    """The image loss kernel against its plain version on the card, at the
+    training cells' 976x544 and at a size that is no multiple of its
+    32-pixel tile, on renders with values outside [0, 1], ties and exact
+    0 and 1: the loss, L1 and 1 - SSIM at rtol 2e-3 / atol 1e-4, the
+    gradient of the pixels' sum (3 H W dL/dx; dL/dx itself is ~1e-6) at
+    the same tolerances, the clamped render exactly; one launch a call,
+    and a second call bit for bit the first."""
+    render, gt = loss_images(h, w, seed=h + w, device=cuda)
+    before = TLC.launch_counts["image_loss"]
+    got = TLC.image_loss(render, gt, 0.2)
+    torch.cuda.synchronize()
+    assert TLC.launch_counts["image_loss"] == before + 1
+    want = TLC.image_loss_torch(render, gt, 0.2)
+    for name in ("loss", "l1", "ssim_loss"):
+        np.testing.assert_allclose(float(getattr(got, name)),
+                                   float(getattr(want, name)), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+    n = render.numel()
+    np.testing.assert_allclose((got.grad.double() * n).cpu().numpy(),
+                               (want.grad.double() * n).cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(got.image, want.image)
+    assert_bitwise_equal(tuple(TLC.image_loss(render, gt, 0.2)), tuple(got))
+
+
+def test_image_loss_launches_once_a_step_without_sync(cuda, tmp_path):
+    """One image loss launch a training step on the card, and the step's
+    loss stage (from the forward blend's mark to the loss's, the
+    regularizer off as in the benchmark's cells) runs under
+    torch.cuda.set_sync_debug_mode("error"): no host sync is left in it."""
+    from taichi_3d_gaussian_splatting_torch import config as tconfig
+    from taichi_3d_gaussian_splatting_torch.training import trainer as TT
+    write_dataset(str(tmp_path))
+    trainer = TT.GaussianPointCloudTrainer(
+        tconfig.from_dict(TT.TrainConfig, config_dict(
+            str(tmp_path),
+            loss_function_config={"enable_regularization": False})),
+        device="cuda")
+    item = trainer.train_dataset[0]
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        item.image, item.q_pointcloud_camera, item.t_pointcloud_camera)]
+    marks = []
+
+    def mark(name):
+        marks.append(name)
+        if name == "forward blend":
+            torch.cuda.set_sync_debug_mode("error")
+        elif name == "loss":
+            torch.cuda.set_sync_debug_mode(0)
+
+    trainer.step(*args, 0, item.camera_info)
+    torch.cuda.synchronize()
+    before = TLC.launch_counts["image_loss"]
+    try:
+        trainer.step(*args, 0, item.camera_info, mark=mark)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    trainer.step(*args, 0, item.camera_info)
+    torch.cuda.synchronize()
+    trainer.logger.close()
+    assert TLC.launch_counts["image_loss"] == before + 2
+    assert marks.index("forward blend") + 1 == marks.index("loss")
+
+
 def test_viewer_on_card_matches_cpu(cuda, tmp_path):
     """The viewer's frames on the card against the CPU after a camera key,
     an object key and a hide; each frame launches K1 once."""
@@ -434,7 +502,8 @@ def test_loaders_default_to_the_card(cuda, tmp_path):
 def test_trainer_trace_shows_the_kernels(cuda, tmp_path):
     """A profiled 32x32 run on the card: the trace file under
     <logs>/profile/ holds the two ranges and the forward and backward
-    blend and projection kernels once per step."""
+    blend and projection kernels once per step, the image loss kernel once
+    a step and no cuDNN convolution."""
     from taichi_3d_gaussian_splatting_torch import config as tconfig
     from taichi_3d_gaussian_splatting_torch.training import trainer as TT
     from taichi_3d_gaussian_splatting_torch.utils import profiling as P
@@ -455,3 +524,8 @@ def test_trainer_trace_shows_the_kernels(cuda, tmp_path):
         assert summary["blend"][fam]["launches_per_range"] == 1.0, fam
         assert summary["projection"][fam]["launches_per_range"] == 1.0, fam
     assert summary["optimizer"]["launches_per_range"] == 1.0
+    names = [P.kernel_base_name(e["name"]) for e in P.load_events(files[0])
+             if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    assert names.count("image_loss_kernel") == 2
+    assert names.count("image_loss_finish_kernel") == 2
+    assert not [n for n in names if "conv" in n.lower() or "dgrad" in n]

@@ -99,15 +99,17 @@ def config_dict(root, **over):
     return d
 
 
-def one_step_state(root, device):
+def one_step_state(root, device, **over):
     """Build the port's trainer on `device` from the dataset under `root`
     (see write_dataset / config_dict), make its scales anisotropic (seeded,
     so that no gradient is pure rounding noise), take one step on view 0
-    and return (loss, the training state as numpy arrays by name)."""
+    and return (loss, the training state as numpy arrays by name); `over`
+    changes the config (config_dict)."""
     from taichi_3d_gaussian_splatting_torch import config as tconfig
     from taichi_3d_gaussian_splatting_torch.training import trainer as TT
     trainer = TT.GaussianPointCloudTrainer(
-        tconfig.from_dict(TT.TrainConfig, config_dict(root)), device=device)
+        tconfig.from_dict(TT.TrainConfig, config_dict(root, **over)),
+        device=device)
     feats = trainer.scene.point_cloud_features.cpu().numpy()
     rng = np.random.default_rng(5)
     feats[:, 4:7] += rng.uniform(-0.5, 0.5, (feats.shape[0], 3))
@@ -145,17 +147,18 @@ def batch_views(trainer, idxs):
             items[-1].camera_info)
 
 
-def batch_step_state(device, root):
+def batch_step_state(device, root, **over):
     """The port's trainer with batch_size 2 on `device` (under the process
     group, if one is initialized) from the dataset under `root`, anisotropic
     scales as in one_step_state, two batch steps on the views of BATCHES;
     returns {"losses": [...], "state": the training state as numpy
-    arrays}."""
+    arrays}; `over` changes the config (config_dict)."""
     from taichi_3d_gaussian_splatting_torch import config as tconfig
     from taichi_3d_gaussian_splatting_torch.training import trainer as TT
     torch.set_num_threads(1)
     trainer = TT.GaussianPointCloudTrainer(
-        tconfig.from_dict(TT.TrainConfig, config_dict(root, batch_size=2)),
+        tconfig.from_dict(TT.TrainConfig,
+                          config_dict(root, batch_size=2, **over)),
         device=device)
     feats = trainer.scene.point_cloud_features.cpu().numpy()
     rng = np.random.default_rng(5)
@@ -268,3 +271,30 @@ def assert_bitwise_equal(got, want, what=""):
         a, b = a.view(torch.int32), b.view(torch.int32)
     diff = int((a != b).sum())
     assert diff == 0, f"{what}: {diff} values differ"
+
+
+def loss_images(h, w, seed, device="cpu"):
+    """(render, ground truth), float32 (h, w, 3), for the image loss: a
+    ground truth of smooth shading and fine texture in 8-bit levels, and a
+    render near it with 8% of its values pushed outside [0, 1], 5% equal to
+    the ground truth and 2% exactly 0 or 1 (half of those on a ground truth
+    equal to them)."""
+    rng = np.random.default_rng(seed)
+    r = np.linspace(0.0, 1.0, h)[:, None, None]
+    c = np.linspace(0.0, 1.0, w)[None, :, None]
+    phase = rng.uniform(0.0, 2 * np.pi, (1, 1, 3))
+    gt = (0.5 + 0.35 * np.sin(7.0 * r + phase) * np.cos(5.0 * c - phase)
+          + 0.08 * rng.normal(size=(h, w, 3)))
+    gt = np.round(np.clip(gt, 0.0, 1.0) * 255.0) / 255.0
+    render = gt + 0.05 * rng.normal(size=(h, w, 3))
+    u = rng.random((h, w, 3))
+    render = np.where(u < 0.04, -rng.uniform(0.0, 0.3, (h, w, 3)), render)
+    render = np.where((u >= 0.04) & (u < 0.08),
+                      1.0 + rng.uniform(0.0, 0.3, (h, w, 3)), render)
+    render = np.where((u >= 0.08) & (u < 0.13), gt, render)
+    ends = (u >= 0.13) & (u < 0.15)
+    end = np.where(rng.random((h, w, 3)) < 0.5, 0.0, 1.0)
+    render = np.where(ends, end, render)
+    gt = np.where(ends & (rng.random((h, w, 3)) < 0.5), end, gt)
+    return (torch.as_tensor(render.astype(np.float32), device=device),
+            torch.as_tensor(gt.astype(np.float32), device=device))
