@@ -199,6 +199,9 @@ import types
 
 import numpy as np
 
+from taichi_3d_gaussian_splatting_torch.ops._build import (
+    launch_counts, reset_launch_counts)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 H, W, FOCAL = 544, 976, 581.7
 WARMUP_FRAMES, TIMED_FRAMES = 10, 50
@@ -378,29 +381,6 @@ S5_SASS = {"mul7": "elementwise_kernelILi0E", "exp": "elementwise_kernelILi3E",
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", flush=True)
     sys.exit(1)
-
-
-def reset_launch_counts():
-    """Every kernel wrapper's launch count to 0 (blend, projection,
-    optimizer and image loss)."""
-    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
-    from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
-    from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
-    from taichi_3d_gaussian_splatting_torch.training import loss_cuda as TLC
-    BC.reset_launch_counts()
-    PC.reset_launch_counts()
-    TA.reset_launch_counts()
-    TLC.reset_launch_counts()
-
-
-def launch_counts():
-    """Every kernel wrapper's launch count, in one dict."""
-    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
-    from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
-    from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
-    from taichi_3d_gaussian_splatting_torch.training import loss_cuda as TLC
-    return {**BC.launch_counts, **PC.launch_counts, **TA.launch_counts,
-            **TLC.launch_counts}
 
 
 def check_projection_launches(launches, label, fail):
@@ -602,7 +582,6 @@ def train_phase(paths, root, card, fail):
     write_training_set; check the run; time steps, stages and densify.
     Returns the kernel launch counts of the training run."""
     import torch
-    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops.rasterizer import _no_mark
     from taichi_3d_gaussian_splatting_torch.training.controller import (
         densify_step)
@@ -620,7 +599,7 @@ def train_phase(paths, root, card, fail):
     trainer.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = launch_counts.copy()
     print(f"kernel launches during the {TRAIN_ITERATIONS}-iteration "
           f"training run: {launches}", flush=True)
     if (launches["blend_forward"] < TRAIN_ITERATIONS
@@ -686,7 +665,6 @@ def batch_train_phase(paths, root, card, fail):
     import datetime
     import torch
     import torch.distributed as dist
-    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops.rasterizer import _no_mark
 
     dist.init_process_group(
@@ -709,7 +687,7 @@ def batch_train_phase(paths, root, card, fail):
         trainer.train()
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = launch_counts()
+        launches = launch_counts.copy()
         print(f"kernel launches during the {BATCH_ITERATIONS}-iteration "
               f"batch run: {launches}", flush=True)
         views = BATCH_SIZE * BATCH_ITERATIONS
@@ -790,7 +768,6 @@ def viewer_phase(root, pc, feats, card, fail):
     import torch
     from taichi_3d_gaussian_splatting_torch.models.scene import (
         GaussianPointCloudScene)
-    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.visualizer import VisualizerState
 
     half = pc.shape[0] // 2
@@ -816,7 +793,7 @@ def viewer_phase(root, pc, feats, card, fail):
         if img.size != (W, H):
             fail(f"viewer PNG after {key!r} is {img.size}")
         frames[key] = np.asarray(img, np.float32)
-    launches = launch_counts()
+    launches = launch_counts.copy()
     if launches["blend_forward_rgb"] < len(frames):
         fail(f"the viewer's frames did not launch K1: {launches}")
     check_projection_launches(launches, "viewer", fail)
@@ -878,7 +855,7 @@ def trace_train_phase(paths, root, card, fail):
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
         _project_and_bin)
-    from taichi_3d_gaussian_splatting_torch.training.trainer import (
+    from taichi_3d_gaussian_splatting_torch.training.step import (
         normalize_quaternions)
     from taichi_3d_gaussian_splatting_torch.utils.profiling import (
         load_events, summarize_trace, trace_files)
@@ -1125,10 +1102,10 @@ def image_loss_phase(card, fail):
     from taichi_3d_gaussian_splatting_torch.training import loss_cuda as TLC
     lam = 0.2
     render, gt = loss_images(H, W, seed=11, device="cuda")
-    before = TLC.launch_counts["image_loss"]
+    before = launch_counts["image_loss"]
     got = TLC.image_loss(render, gt, lam)
     torch.cuda.synchronize()
-    if TLC.launch_counts["image_loss"] != before + 1:
+    if launch_counts["image_loss"] != before + 1:
         fail("image loss kernel: not one launch a call")
     want = TLC.image_loss_torch(render, gt, lam)
     n = render.numel()
@@ -1374,7 +1351,6 @@ def data_chain_phase(root, card, fail):
     from torch_train_fixtures import config_dict
     from taichi_3d_gaussian_splatting_torch import config as tconfig
     from taichi_3d_gaussian_splatting_torch import render as render_cli
-    from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.tools import prepare_kitti
     from taichi_3d_gaussian_splatting_torch.training.trainer import (
         GaussianPointCloudTrainer, TrainConfig)
@@ -1433,10 +1409,10 @@ def data_chain_phase(root, card, fail):
                      "--height", str(COLMAP_H), "--fx", "50.0", "--fy", "52.0",
                      "--device", "cuda"])
     torch.cuda.synchronize()
-    if (BC.launch_counts["blend_forward_rgb"], launch_counts()[
-            "project_forward"]) != (1, 1):
+    if (launch_counts["blend_forward_rgb"],
+            launch_counts["project_forward"]) != (1, 1):
         fail(f"the render CLI did not launch K1 and P1 once: "
-             f"{launch_counts()}")
+             f"{dict(launch_counts)}")
     frame = np.asarray(PIL.Image.open(os.path.join(root, "frame_00000.png")),
                        np.float64)
     truth = np.asarray(PIL.Image.open(view[0]["image_path"]),
@@ -1464,7 +1440,7 @@ def data_chain_phase(root, card, fail):
     trainer.train()
     trainer.logger.close()
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = launch_counts.copy()
     with open(os.path.join(d["summary_writer_log_dir"], "metrics.jsonl")) as f:
         kitti_losses = [r["train/loss"] for r in map(json.loads, f)
                         if "train/loss" in r]
@@ -1556,7 +1532,7 @@ def check_training_launches(label, fail):
     P1 once per frame, P2 and the optimizer kernel once per single-view
     step, the image loss kernel once per training and validation view;
     returns the counts."""
-    launches = launch_counts()
+    launches = launch_counts.copy()
     if min(launches["blend_forward"], launches["blend_backward"]) < 1:
         fail(f"{label}: a kernel of the training path was never launched: "
              f"{launches}")
@@ -2934,7 +2910,7 @@ def main():
         res = render(scene, cfg_rgb)
         full = render(scene, cfg_full)      # depth + count of the same view
         torch.cuda.synchronize()
-        launches = launch_counts()
+        launches = launch_counts.copy()
         img = res.image
         alpha = res.aux.pixel_accumulated_alpha
         if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()):

@@ -60,8 +60,6 @@ import torch
 from .camera import CameraInfo
 from .models.scene import GaussianPointCloudScene
 from .ops import _build
-from .ops import blend_cuda as BC
-from .ops import projection_cuda as PC
 from .ops.rasterizer import (RasterizerConfig, _resolve_slab_format,
                              rasterize, rasterize_with_vjp)
 from .ops.sh import feature_sh_band_mask
@@ -69,7 +67,7 @@ from .training.adam import AdamState, adam_init, adam_update
 from .training.controller import (AdaptiveControllerConfig, ControllerState,
                                   densify_step, update_stats)
 from .training.loss import LossFunction, LossFunctionConfig
-from .training.trainer import normalize_quaternions, view_gradients
+from .training.step import normalize_quaternions, view_gradients
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -377,7 +375,7 @@ def main(argv=None):
                                "is False (--device cpu runs the plain "
                                "blends)")
         try:
-            _build.load_library()
+            _build.on_card(device, "the bench")
         except (RuntimeError, OSError) as exc:
             _emit_error_record(f"kernel build failed: {exc}")
         torch.cuda.reset_peak_memory_stats(device)
@@ -389,8 +387,7 @@ def main(argv=None):
     cfg = RasterizerConfig(near_plane=NEAR, far_plane=FAR, rgb_only=True,
                            slab_format=os.environ.get("BENCH_SLAB_FORMAT",
                                                       "auto"))
-    BC.reset_launch_counts()
-    PC.reset_launch_counts()
+    _build.reset_launch_counts()
     frame_ms, aux = measure_render(pc, feats, cam, cfg, device,
                                    int(os.environ.get("BENCH_ITERS", "50")))
     _peak_memory(device, "scene and render")
@@ -410,8 +407,7 @@ def main(argv=None):
                           train_ms)
     if train_error is not None:
         record["train_error"] = train_error
-    print(f"kernel launches: "
-          f"{json.dumps({**BC.launch_counts, **PC.launch_counts})}",
+    print(f"kernel launches: {json.dumps(_build.launch_counts)}",
           file=sys.stderr, flush=True)
     print(json.dumps(record), flush=True)
     if train_error is not None:

@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels, and launch them.
 
 The sources in ``csrc/*.cu`` have a plain C interface. At first use each
 is compiled by its own ``nvcc`` for sm_90a (with ``SOURCE_FLAGS`` added for
@@ -12,10 +12,16 @@ The probes' sources (``csrc/probes/*.cu``) build the same way into a
 library of their own (``load_probe_library``), hashed over those sources,
 every header they include and the flags they are given, so that the
 kernel library's name does not depend on them.
+
+Every wrapper of a kernel (`ops/blend_cuda.py`, `ops/projection_cuda.py`,
+`training/adam_cuda.py`, `training/loss_cuda.py`) chooses between the
+kernel and its plain version with `on_card` and launches the kernel with
+`launch`, which counts it in `launch_counts`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -24,6 +30,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
@@ -170,6 +178,46 @@ def load_library():
         build_log = _compile(nvcc, sources, lib_path)
     _library = _declare(ctypes.CDLL(str(lib_path)))
     return _library
+
+
+# Kernel launches by name (`launch`), counted only when a kernel launches
+# on the card, never for a plain version.
+launch_counts = collections.Counter()
+
+
+def reset_launch_counts():
+    launch_counts.clear()
+
+
+def on_card(where, what: str) -> bool:
+    """Whether `what` runs its kernel on `where` (a tensor or a device):
+    True on a CUDA device, once the kernel library is built and loaded (a
+    missing toolkit raises here, before the wrapper allocates anything);
+    False on the CPU, where the plain version runs. Any other device
+    raises: there is no fallback."""
+    device = (where.device if hasattr(where, "device")
+              else torch.device(where))
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise RuntimeError(f"{what} runs on cpu or cuda tensors, got "
+                           f"{device}")
+    load_library()
+    return True
+
+
+def launch(name: str, *args, device, counted_as: str = ""):
+    """Launch the library's `t3dgs_<name>` with `args` and the current
+    stream of `device` appended, under that device. A nonzero return
+    raises; the launch is counted in `launch_counts` under `counted_as`
+    (`name` if empty)."""
+    fn = getattr(load_library(), f"t3dgs_{name}")
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the {name} kernel failed to launch: CUDA error "
+                           f"{err}")
+    launch_counts[counted_as or name] += 1
 
 
 # The probes (taichi_3d_gaussian_splatting_torch/probes/): their

@@ -45,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from ..camera import TILE_WIDTH, TILE_HEIGHT
+from ._build import launch, on_card
 from .gaussian import ALPHA_SKIP_THRESHOLD
 
 # Row layout of the (16, MK) f32 wide16 slab
@@ -97,17 +98,6 @@ GROW_MAG_UV = 11       # sum over pixels of |(gx, gy)|
 GROW_NUM_PIXELS = 12   # number of pixels the key contributed to
 GRAD_ROWS = (GROW_DU, GROW_DV, GROW_DA, GROW_DB, GROW_DC, GROW_DLOGW,
              GROW_DR, GROW_DG, GROW_DB_COL, GROW_MAG_UV, GROW_NUM_PIXELS)
-
-# Kernel launches per kernel (the forward per variant), counted by the
-# wrappers only when they launch a CUDA kernel (never for a plain version).
-launch_counts = {"blend_forward_rgb": 0, "blend_forward": 0,
-                 "blend_backward": 0}
-
-
-def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
-
 
 # Keys per chunk of the kernels' work list (passed to every launch). At
 # least the 430k scene's longest tile segment at 976x544 (664 keys), so that
@@ -192,23 +182,14 @@ def build_work_list(tile_starts, tile_ends, mk):
     as the blend kernels build it at the start of each launch: CPU tensors
     take the plain version; CUDA tensors launch the builder kernel; any
     other device raises."""
-    device = tile_starts.device
-    if device.type == "cpu":
+    if not on_card(tile_starts, "build_work_list"):
         return chunk_work_list(tile_starts, tile_ends, mk)
-    if device.type != "cuda":
-        raise RuntimeError(f"build_work_list runs on cpu or cuda tensors, "
-                           f"got {device}")
-    from ._build import load_library
-    lib = load_library()
+    device = tile_starts.device
     num_tiles = tile_starts.shape[0]
     work, counters = _work_scratch(num_tiles, mk, device)
-    with torch.cuda.device(device):
-        err = lib.t3dgs_build_work_list(
-            tile_starts.data_ptr(), tile_ends.data_ptr(), num_tiles, mk,
-            CHUNK_KEYS, counters.data_ptr(), work.items.data_ptr(), work.num_items,
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"work-list kernel launch failed: CUDA error {err}")
+    launch("build_work_list", tile_starts.data_ptr(), tile_ends.data_ptr(),
+           num_tiles, mk, CHUNK_KEYS, counters.data_ptr(),
+           work.items.data_ptr(), work.num_items, device=device)
     return work
 
 
@@ -353,17 +334,12 @@ def _forward(point_data, tile_starts, tile_ends, num_tiles, tiles_per_row,
     """(out, last: None with rgb_only) of the plain version on CPU tensors
     or of the kernel on CUDA tensors; any other device raises."""
     _check_inputs(point_data, tile_starts, tile_ends, num_tiles, rgb_only)
-    device = point_data.device
-    if device.type == "cpu":
+    if not on_card(point_data, "blend_forward"):
         out, last = blend_forward_with_last_torch(
             point_data, tile_starts, tile_ends, num_tiles=num_tiles,
             tiles_per_row=tiles_per_row, rgb_only=rgb_only)
         return out, None if rgb_only else last
-    if device.type != "cuda":
-        raise RuntimeError(f"blend_forward runs on cpu or cuda tensors, "
-                           f"got {device}")
-    from ._build import load_library
-    lib = load_library()
+    device = point_data.device
     mk = point_data.shape[1]
     work, counters = _work_scratch(num_tiles, mk, device)
     out = torch.empty((num_tiles, 8, PIXELS_PER_TILE), dtype=torch.float32,
@@ -381,21 +357,15 @@ def _forward(point_data, tile_starts, tile_ends, num_tiles, tiles_per_row,
                            device=device)
         part_last = torch.empty((scratch, PIXELS_PER_TILE),
                                 dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.t3dgs_blend_forward(
-            point_data.data_ptr(), tile_starts.data_ptr(),
-            tile_ends.data_ptr(), num_tiles, CHUNK_KEYS, work.items.data_ptr(),
-            work.num_items, work.num_split_items, counters.data_ptr(),
-            tchunk.data_ptr(), partial.data_ptr(),
-            None if rgb_only else part_last.data_ptr(), out.data_ptr(),
-            None if rgb_only else last.data_ptr(), mk, tiles_per_row,
-            int(point_data.shape[0] == PACKED_DATA_ROWS), int(rgb_only),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"blend_forward kernel launch failed: CUDA error "
-                           f"{err}")
-    launch_counts["blend_forward_rgb" if rgb_only else "blend_forward"] += 1
+    launch("blend_forward", point_data.data_ptr(), tile_starts.data_ptr(),
+           tile_ends.data_ptr(), num_tiles, CHUNK_KEYS, work.items.data_ptr(),
+           work.num_items, work.num_split_items, counters.data_ptr(),
+           tchunk.data_ptr(), partial.data_ptr(),
+           None if rgb_only else part_last.data_ptr(), out.data_ptr(),
+           None if rgb_only else last.data_ptr(), mk, tiles_per_row,
+           int(point_data.shape[0] == PACKED_DATA_ROWS), int(rgb_only),
+           device=device,
+           counted_as="blend_forward_rgb" if rgb_only else "blend_forward")
     return out, last
 
 
@@ -557,16 +527,11 @@ def blend_backward(point_data, tile_starts, tile_ends, pixel_in, *,
     any other device raises."""
     _check_backward_inputs(point_data, tile_starts, tile_ends, pixel_in,
                            num_tiles, last)
-    device = point_data.device
-    if device.type == "cpu":
+    if not on_card(point_data, "blend_backward"):
         return blend_backward_torch(point_data, tile_starts, tile_ends,
                                     pixel_in, num_tiles=num_tiles,
                                     tiles_per_row=tiles_per_row, last=last)
-    if device.type != "cuda":
-        raise RuntimeError(f"blend_backward runs on cpu or cuda tensors, "
-                           f"got {device}")
-    from ._build import load_library
-    lib = load_library()
+    device = point_data.device
     if last is None:
         last = pixel_in[:, PIXEL_IN_LAST].to(torch.int32).contiguous()
     mk = point_data.shape[1]
@@ -579,17 +544,10 @@ def blend_backward(point_data, tile_starts, tile_ends, pixel_in, *,
     tq, mag_part = torch.empty((2, max(work.num_split_items, 1), 2,
                                 PIXELS_PER_TILE), dtype=torch.float32,
                                device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.t3dgs_blend_backward(
-            point_data.data_ptr(), tile_starts.data_ptr(),
-            tile_ends.data_ptr(), num_tiles, CHUNK_KEYS, work.items.data_ptr(),
-            work.num_items, work.num_split_items, counters.data_ptr(),
-            pixel_in.data_ptr(), last.data_ptr(), tq.data_ptr(),
-            mag_part.data_ptr(),
-            grad.data_ptr(), mag.data_ptr(), mk, tiles_per_row, stream)
-    if err != 0:
-        raise RuntimeError(f"blend_backward kernel launch failed: CUDA error "
-                           f"{err}")
-    launch_counts["blend_backward"] += 1
+    launch("blend_backward", point_data.data_ptr(), tile_starts.data_ptr(),
+           tile_ends.data_ptr(), num_tiles, CHUNK_KEYS, work.items.data_ptr(),
+           work.num_items, work.num_split_items, counters.data_ptr(),
+           pixel_in.data_ptr(), last.data_ptr(), tq.data_ptr(),
+           mag_part.data_ptr(), grad.data_ptr(), mag.data_ptr(), mk,
+           tiles_per_row, device=device)
     return grad, mag

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..camera import BOUNDARY_TILES, CameraInfo, TILE_HEIGHT, TILE_WIDTH
+from ._build import launch, on_card
 from .projection import (PointAttributes, _forward_terms,
                          backward_from_tables, blend_logw, camera_table,
                          edit_table)
@@ -46,15 +47,6 @@ BLEND_COLUMNS = ("u", "v", "conic_a", "conic_b", "conic_c", "logw",
 # ProjectPoints' outputs: the PointAttributes fields, then logw
 OUTPUTS = PointAttributes._fields + ("logw",)
 DIFFERENTIABLE = frozenset(BLEND_COLUMNS)
-
-# Kernel launches, counted by the wrappers only when they launch a CUDA
-# kernel (never for a plain version).
-launch_counts = {"project_forward": 0, "project_backward": 0}
-
-
-def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 class ProjectionInputs(NamedTuple):
@@ -124,14 +116,6 @@ def _check_points(pointcloud, features, object_id, inputs,
                              f"{tuple(t.shape)}")
 
 
-def _device_type(pointcloud, what):
-    kind = pointcloud.device.type
-    if kind not in ("cpu", "cuda"):
-        raise RuntimeError(f"{what} runs on cpu or cuda tensors, got "
-                           f"{pointcloud.device}")
-    return kind
-
-
 def _kernel_args(pointcloud, features, object_id, inputs):
     """The points as the kernels take them (contiguous; the features
     16-byte aligned, copied if not) and the arguments both kernels share;
@@ -161,7 +145,7 @@ def project_forward(pointcloud, features, point_invalid_mask,
     raises."""
     _check_points(pointcloud, features, point_object_id, inputs,
                   point_invalid_mask)
-    if _device_type(pointcloud, "project_forward") == "cpu":
+    if not on_card(pointcloud, "project_forward"):
         with torch.no_grad():
             attrs = _forward_terms(
                 pointcloud, features, point_invalid_mask, point_object_id,
@@ -170,8 +154,6 @@ def project_forward(pointcloud, features, point_invalid_mask,
                 inputs.color_sh_mask).attrs
             return attrs, blend_logw(attrs.rescale,
                                      attrs.alpha_after_activation)
-    from ._build import load_library
-    lib = load_library()
     device = pointcloud.device
     n = pointcloud.shape[0]
     pointcloud, features, object_id, shared = _kernel_args(
@@ -187,18 +169,12 @@ def project_forward(pointcloud, features, point_invalid_mask,
     nonfinite = torch.empty((), dtype=torch.int32, device=device)
     cam = inputs.camera_info
     bw, bh = TILE_WIDTH * BOUNDARY_TILES, TILE_HEIGHT * BOUNDARY_TILES
-    with torch.cuda.device(device):
-        err = lib.t3dgs_project_forward(
-            pointcloud.data_ptr(), features.data_ptr(), invalid.data_ptr(),
-            object_id.data_ptr(), n, *shared, inputs.near_plane,
-            inputs.far_plane, float(-bw), float(cam.camera_width + bw),
-            float(-bh), float(cam.camera_height + bh), out.data_ptr(),
-            masks.data_ptr(),
-            nonfinite.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"projection forward kernel launch failed: CUDA "
-                           f"error {err}")
-    launch_counts["project_forward"] += 1
+    launch("project_forward", pointcloud.data_ptr(), features.data_ptr(),
+           invalid.data_ptr(), object_id.data_ptr(), n, *shared,
+           inputs.near_plane, inputs.far_plane, float(-bw),
+           float(cam.camera_width + bw), float(-bh),
+           float(cam.camera_height + bh), out.data_ptr(), masks.data_ptr(),
+           nonfinite.data_ptr(), device=device)
     cols = dict(zip(FLOAT_ROWS, out))
     cols.update(zip(MASK_ROWS, masks.view(torch.bool)))
     logw = cols.pop("logw")
@@ -223,30 +199,21 @@ def project_backward(pointcloud, features, point_object_id,
                          f"stride on {pointcloud.device}, got "
                          f"{cotangents.dtype} {tuple(cotangents.shape)} "
                          f"{cotangents.stride()} on {cotangents.device}")
-    if _device_type(pointcloud, "project_backward") == "cpu":
+    if not on_card(pointcloud, "project_backward"):
         return backward_from_tables(
             pointcloud, features, point_object_id, inputs.table, inputs.edit,
             inputs.camera_info, inputs.near_plane, cotangents,
             inputs.color_sh_mask)
-    from ._build import load_library
-    lib = load_library()
     device = pointcloud.device
     pointcloud, features, object_id, shared = _kernel_args(
         pointcloud, features, point_object_id, inputs)
     grad_pc = torch.empty((n, 3), dtype=torch.float32, device=device)
     grad_feats = torch.empty((n, NUM_FEATURES), dtype=torch.float32,
                              device=device)
-    with torch.cuda.device(device):
-        err = lib.t3dgs_project_backward(
-            pointcloud.data_ptr(), features.data_ptr(), object_id.data_ptr(),
-            n, *shared, inputs.near_plane, cotangents.data_ptr(),
-            cotangents.stride(0) if n > 0 else 0, grad_pc.data_ptr(),
-            grad_feats.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"projection backward kernel launch failed: CUDA "
-                           f"error {err}")
-    launch_counts["project_backward"] += 1
+    launch("project_backward", pointcloud.data_ptr(), features.data_ptr(),
+           object_id.data_ptr(), n, *shared, inputs.near_plane,
+           cotangents.data_ptr(), cotangents.stride(0) if n > 0 else 0,
+           grad_pc.data_ptr(), grad_feats.data_ptr(), device=device)
     return grad_pc, grad_feats
 
 

@@ -90,6 +90,7 @@ def toy_batch_step(device):
     from ..training.adam import AdamGroup, adam_init
     from ..training.controller import ControllerState
     from ..training.loss import LossFunction, LossFunctionConfig
+    from ..training.step import TrainStep
     from .sharding import (make_data_parallel_train_step, make_mesh,
                            replicate_scene)
 
@@ -105,10 +106,10 @@ def toy_batch_step(device):
     opt_pos = adam_init(scene.point_cloud)
     ctrl = ControllerState.zeros(scene.capacity, device)
     replicate_scene(mesh, scene, opt_feat, opt_pos, ctrl)
-    step = make_data_parallel_train_step(
-        mesh, cam, RasterizerConfig(near_plane=0.1, far_plane=100.0),
+    step = make_data_parallel_train_step(mesh, cam, TrainStep(
+        RasterizerConfig(near_plane=0.1, far_plane=100.0),
         LossFunction(LossFunctionConfig(enable_regularization=False)),
-        AdamGroup(1e-3), AdamGroup(1e-5))
+        AdamGroup(1e-3), AdamGroup(1e-5)))
 
     b = mesh.size
     rng = np.random.default_rng(1)

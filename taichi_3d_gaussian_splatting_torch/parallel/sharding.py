@@ -15,8 +15,9 @@ Layout:
 
 Gradients are summed over the views, not averaged: one step on B views
 equals the single-view step's accumulation over B frames before one
-optimizer update. The trainer (training/trainer.py) uses this step
-whenever `batch_size > 1`.
+optimizer update. Each view's gradients and the update come from the step
+module (training/step.py); the trainer (training/trainer.py) takes this
+step whenever `batch_size > 1`.
 """
 
 from __future__ import annotations
@@ -28,10 +29,9 @@ import torch
 import torch.distributed as dist
 
 from ..camera import CameraInfo
-from ..ops.rasterizer import BackwardStats, RasterizerConfig, _no_mark
-from ..ops.sh import feature_sh_band_mask
+from ..ops.rasterizer import BackwardStats, _no_mark
+from ..training import step as steps
 from ..training.controller import ControllerState, update_stats
-from ..training.loss import LossFunction
 from ..training.ssim import psnr as psnr_fn
 from ..utils.profiling import span
 
@@ -68,18 +68,11 @@ def replicate_scene(mesh: Mesh, *states):
     return states
 
 
-def make_data_parallel_train_step(
-    mesh: Mesh,
-    camera_info: CameraInfo,
-    raster_config: RasterizerConfig,
-    loss_fn: LossFunction,
-    feature_optimizer: Callable,
-    position_optimizer: Callable,
-) -> Callable:
-    """The multi-view training step over `mesh`.
+def make_data_parallel_train_step(mesh: Mesh, camera_info: CameraInfo,
+                                  train_step: steps.TrainStep) -> Callable:
+    """The multi-view training step over `mesh`, each view's gradients and
+    the update taken by `train_step`.
 
-    The optimizers are the groups' `training.adam.AdamGroup`s; the step
-    takes both in one `training.adam_cuda.optimizer_update`.
     The returned function has the signature
       step(scene, opt_feat, opt_pos, ctrl_state,
            images (B, H, W, 3), qs (B, 1, 4), ts (B, 1, 3),
@@ -96,20 +89,6 @@ def make_data_parallel_train_step(
     statistics and the running sums), after "allreduce" and after
     "adam"; each stage is a span of that name (`utils/profiling.py`).
     """
-    from ..training.adam_cuda import keep_if_ok, optimizer_update
-    from ..training.trainer import (_grad_group_scale, normalize_quaternions,
-                                    view_gradients)
-    grad_scale = torch.as_tensor(_grad_group_scale(raster_config))
-    masks = {}
-
-    def feature_masks(dev, sh_band):
-        """(group scale, band mask) on `dev`, copied there once: a copy
-        to the card waits for the card."""
-        key = (str(dev), int(sh_band))
-        if key not in masks:
-            masks[key] = (grad_scale.to(dev),
-                          feature_sh_band_mask(sh_band, device=dev))
-        return masks[key]
 
     def all_sum(x):
         if mesh.distributed:
@@ -131,8 +110,8 @@ def make_data_parallel_train_step(
         per_rank = b // mesh.size
         first = mesh.rank * per_rank
         dev = scene.point_cloud.device
-        scale, band_mask = feature_masks(dev, sh_band)
-        feats = normalize_quaternions(scene.point_cloud_features)
+        scale, band_mask = train_step.constants(dev, sh_band)
+        feats = steps.normalize_quaternions(scene.point_cloud_features)
 
         grad_pc = torch.zeros_like(scene.point_cloud)
         grad_feats = torch.zeros_like(feats)
@@ -141,9 +120,10 @@ def make_data_parallel_train_step(
         for i in range(first, first + per_rank):
             cam = dataclasses.replace(camera_info,
                                       camera_intrinsics=intrinsics[i])
-            view = view_gradients(scene, feats, images[i], qs[i], ts[i], cam,
-                                  raster_config, loss_fn, scale, band_mask,
-                                  mark)
+            view = steps.view_gradients(
+                scene, feats, images[i], qs[i], ts[i], cam,
+                train_step.raster_config, train_step.loss_fn, scale,
+                band_mask, mark)
             with span("accumulate", mark):
                 aux = view.result.aux
                 # the controller takes each view's raw position gradient
@@ -185,19 +165,15 @@ def make_data_parallel_train_step(
                 from_last_rank(aux.point_uv))
             maps = (from_last_rank(view.image),
                     from_last_rank(view.result.depth),
-                    from_last_rank(view.result.pixel_valid_point_count.to(
-                        torch.float32)))
+                    from_last_rank(view.result.pixel_valid_point_count
+                                   .to(torch.float32)))
 
+        # containment after the sums, as in the single-view step; the
+        # statistics were taken above, from each view's raw gradient
         with span("adam", mark):
-            # containment after the sums, as in the single-view step
-            loss_ok = torch.isfinite(loss_mean)
-            up = optimizer_update(feats, grad_feats, scene.point_cloud,
-                                  grad_pc, opt_feat, opt_pos,
-                                  feature_optimizer, position_optimizer,
-                                  loss_ok)
-            scene = scene._replace(point_cloud=up.pc,
-                                   point_cloud_features=up.feats)
-            ctrl = keep_if_ok(loss_ok, ctrl, ctrl_state)
+            new = train_step.update(scene, opt_feat, opt_pos, ctrl_state,
+                                    feats, grad_feats, grad_pc, loss_mean,
+                                    lambda _: ctrl)
 
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         metrics = {
@@ -206,10 +182,9 @@ def make_data_parallel_train_step(
             "key_overflow": zero, "big_point_overflow": zero,
             "tile_cap_overflow": zero,
             "total_keys": total_keys, "nonfinite_points": nonfinite_points,
-            "nonfinite_grad_rows": up.nonfinite_grad_rows,
-            "skipped_nonfinite_step": (~loss_ok).to(torch.int32),
+            "nonfinite_grad_rows": new.nonfinite_grad_rows,
+            "skipped_nonfinite_step": (~new.loss_ok).to(torch.int32),
         }
-        return (scene, up.opt_features, up.opt_positions, ctrl, metrics,
-                densify_inputs, maps)
+        return (*new[:4], metrics, densify_inputs, maps)
 
     return step

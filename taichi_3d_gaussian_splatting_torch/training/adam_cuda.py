@@ -1,9 +1,8 @@
 """The optimizer step of training in one pass: the feature gradients'
 combination, the containment of non-finite gradient rows, both Adam
 chains and the loss guard, as one CUDA kernel (`csrc/optimizer_update.cu`)
-behind `optimizer_update`, which the single-view step
-(`training/trainer.py`) and the batch step (`parallel/sharding.py`) both
-call.
+behind `optimizer_update`, which every training step calls
+(`training/step.py::TrainStep.update`).
 
 `optimizer_update_torch` is its plain version: `contain_gradients`, two
 `adam_update`s (`AdamGroup`) and `keep_if_ok`. CPU tensors take it; CUDA
@@ -20,18 +19,10 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops._build import AdamGroupArgs, launch, on_card
 from .adam import AdamGroup, AdamState
 
 NUM_FEATURES = 56
-
-# Kernel launches, counted only when the CUDA kernel launches (never for
-# the plain version): one a step on the card.
-launch_counts = {"optimizer_update": 0}
-
-
-def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 class OptimizerUpdate(NamedTuple):
@@ -138,7 +129,6 @@ def _aligned(t):
 def _group_args(group: AdamGroup, state: AdamState):
     """(the kernel's Group argument, the 0-d tensors it points to): the
     bias corrections and learning rate with adam_update's torch ops."""
-    from ..ops._build import AdamGroupArgs
     c = (state.count + 1).to(torch.float32)
     bc1 = 1.0 - torch.pow(group.b1, c)
     bc2 = 1.0 - torch.pow(group.b2, c)
@@ -185,17 +175,11 @@ def optimizer_update(feats, grad_feats, pc, grad_pc,
                          "direct gradient only with them")
     _check(feats, grad_feats, pc, grad_pc, opt_features, opt_positions,
            loss_ok, grad_scale, band_mask, grad_feats_direct)
-    kind = feats.device.type
-    if kind == "cpu":
+    if not on_card(feats, "optimizer_update"):
         return optimizer_update_torch(
             feats, grad_feats, pc, grad_pc, opt_features, opt_positions,
             features, positions, loss_ok, grad_scale, band_mask,
             grad_feats_direct)
-    if kind != "cuda":
-        raise RuntimeError(f"optimizer_update runs on cpu or cuda tensors, "
-                           f"got {feats.device}")
-    from ..ops._build import load_library
-    lib = load_library()
     device = feats.device
     n = feats.shape[0]
     feats, grad_feats, mu_f, nu_f = (_aligned(t) for t in (
@@ -205,28 +189,21 @@ def optimizer_update(feats, grad_feats, pc, grad_pc,
     pc, grad_pc, mu_p, nu_p = (t.contiguous() for t in (
         pc, grad_pc, opt_positions.mu, opt_positions.nu))
     loss_ok = loss_ok.contiguous()
-    with torch.cuda.device(device):
-        args_f, keep_f = _group_args(features, opt_features)
-        args_p, keep_p = _group_args(positions, opt_positions)
-        out_feats, out_mu_f, out_nu_f = (torch.empty_like(t)
-                                         for t in (feats, mu_f, nu_f))
-        out_pc, out_mu_p, out_nu_p, out_grad_pc = (
-            torch.empty_like(t) for t in (pc, mu_p, nu_p, grad_pc))
-        nonfinite = torch.empty((), dtype=torch.int32, device=device)
-        err = lib.t3dgs_optimizer_update(
-            n, feats.data_ptr(), grad_feats.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in optional),
-            mu_f.data_ptr(), nu_f.data_ptr(), pc.data_ptr(),
-            grad_pc.data_ptr(), mu_p.data_ptr(), nu_p.data_ptr(), args_f,
-            args_p, loss_ok.data_ptr(), out_feats.data_ptr(),
-            out_mu_f.data_ptr(), out_nu_f.data_ptr(), out_pc.data_ptr(),
-            out_mu_p.data_ptr(), out_nu_p.data_ptr(), out_grad_pc.data_ptr(),
-            nonfinite.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"optimizer update kernel launch failed: CUDA "
-                           f"error {err}")
-    launch_counts["optimizer_update"] += 1
+    args_f, keep_f = _group_args(features, opt_features)
+    args_p, keep_p = _group_args(positions, opt_positions)
+    out_feats, out_mu_f, out_nu_f = (torch.empty_like(t)
+                                     for t in (feats, mu_f, nu_f))
+    out_pc, out_mu_p, out_nu_p, out_grad_pc = (
+        torch.empty_like(t) for t in (pc, mu_p, nu_p, grad_pc))
+    nonfinite = torch.empty((), dtype=torch.int32, device=device)
+    launch("optimizer_update", n, feats.data_ptr(), grad_feats.data_ptr(),
+           *(None if t is None else t.data_ptr() for t in optional),
+           mu_f.data_ptr(), nu_f.data_ptr(), pc.data_ptr(),
+           grad_pc.data_ptr(), mu_p.data_ptr(), nu_p.data_ptr(), args_f,
+           args_p, loss_ok.data_ptr(), out_feats.data_ptr(),
+           out_mu_f.data_ptr(), out_nu_f.data_ptr(), out_pc.data_ptr(),
+           out_mu_p.data_ptr(), out_nu_p.data_ptr(), out_grad_pc.data_ptr(),
+           nonfinite.data_ptr(), device=device)
     counts = [torch.where(loss_ok, s.count + 1, s.count)
               for s in (opt_features, opt_positions)]
     return OptimizerUpdate(

@@ -1,8 +1,8 @@
 """The image terms of the training loss and their gradient in one pass:
 the clamp, L1, SSIM and the gradient with respect to the unclamped render,
 as one CUDA kernel (`csrc/image_loss.cu`) and a second small launch that
-adds up the blocks' sums, behind `image_loss`, which the single-view step
-and the batch step (through `trainer.view_gradients`) and validation call.
+adds up the blocks' sums, behind `image_loss`, which every training step
+(through `step.view_gradients`) and validation call.
 
 `image_loss_torch` is its plain version: the clamp, `loss.image_terms`
 (L1 and `ssim.ssim`) and `torch.autograd.grad`. CPU tensors take it; CUDA
@@ -17,22 +17,13 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops._build import launch, on_card
 from .loss import image_terms
 from .ssim import WIN_SIZE
 
 # pixels a side of the kernel's blocks (csrc/image_loss.cu kTile): the
 # blocks' sums take 2 doubles each, 3 ceil(H / TILE) ceil(W / TILE) blocks
 TILE = 32
-
-# Kernel launches, counted only when the CUDA kernel launches (never for
-# the plain version): one a training view and one a validation view on the
-# card.
-launch_counts = {"image_loss": 0}
-
-
-def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 class ImageLoss(NamedTuple):
@@ -81,17 +72,11 @@ def image_loss(image, image_gt, lambda_value: float) -> ImageLoss:
     CPU tensors take `image_loss_torch`; CUDA tensors (float32) launch the
     kernel, with no host sync; any other device raises."""
     _check(image, image_gt)
-    kind = image.device.type
-    if kind == "cpu":
+    if not on_card(image, "image_loss"):
         return image_loss_torch(image, image_gt, lambda_value)
-    if kind != "cuda":
-        raise RuntimeError(f"image_loss runs on cpu or cuda tensors, got "
-                           f"{image.device}")
     if image.dtype != torch.float32 or image_gt.dtype != torch.float32:
         raise ValueError(f"image_loss takes float32 images on the card, got "
                          f"{image.dtype} and {image_gt.dtype}")
-    from ..ops._build import load_library
-    lib = load_library()
     device = image.device
     h, w = image.shape[:2]
     image = image.detach().contiguous()
@@ -99,19 +84,12 @@ def image_loss(image, image_gt, lambda_value: float) -> ImageLoss:
     scratch = 2 * 3 * -(-h // TILE) * -(-w // TILE)
     lam = float(lambda_value)
     ssim_positions = 3 * (h - WIN_SIZE + 1) * (w - WIN_SIZE + 1)
-    with torch.cuda.device(device):
-        grad = torch.empty_like(image)
-        clamped = torch.empty_like(image)
-        partials = torch.empty(scratch, dtype=torch.float64, device=device)
-        out = torch.empty(3, dtype=torch.float32, device=device)
-        err = lib.t3dgs_image_loss(
-            image.data_ptr(), image_gt.data_ptr(), h, w,
-            (1.0 - lam) / (3 * h * w), -lam / ssim_positions,
-            1.0 - lam, lam, grad.data_ptr(), clamped.data_ptr(),
-            partials.data_ptr(), scratch, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"image loss kernel launch failed: CUDA error "
-                           f"{err}")
-    launch_counts["image_loss"] += 1
+    grad = torch.empty_like(image)
+    clamped = torch.empty_like(image)
+    partials = torch.empty(scratch, dtype=torch.float64, device=device)
+    out = torch.empty(3, dtype=torch.float32, device=device)
+    launch("image_loss", image.data_ptr(), image_gt.data_ptr(), h, w,
+           (1.0 - lam) / (3 * h * w), -lam / ssim_positions, 1.0 - lam, lam,
+           grad.data_ptr(), clamped.data_ptr(), partials.data_ptr(), scratch,
+           out.data_ptr(), device=device)
     return ImageLoss(out[0], out[1], out[2], grad, clamped)

@@ -1,23 +1,10 @@
 """The training loop: `GaussianPointCloudTrainer`, fed a `TrainConfig`.
 
-Each step, on one view (`view_gradients`):
-- re-normalize the stored quaternions (outside autograd);
-- render with `rasterize_with_vjp` (projection, binning, the forward blend
-  kernel);
-- L1 + SSIM on the image clipped to [0, 1] and their gradient with
-  respect to the render, `training/loss_cuda.py::image_loss` (one kernel
-  on the card), plus the scale regularizer by autograd when it is on;
-- the backward blend kernel, per-point routing and autograd through the
-  projection (`vjp_fn`); the rasterizer-path feature gradients are scaled
-  per group (`_grad_group_scale`) and masked to the active SH bands, and
-  the regularizer's gradient is added unscaled;
-- non-finite gradient rows are zeroed, and a non-finite loss skips the
-  whole update (Adam moments and controller statistics included);
-- two Adam chains: features at `feature_learning_rate`, positions at
-  `position_learning_rate * decay_rate ** ceil(count / decay_interval)`.
-The scaling and masking, the containment, both chains and the loss guard
-are one call, `training/adam_cuda.py::optimizer_update` (one kernel on the
-card), which the batch step calls too.
+Each step is `training/step.py`'s: on one view, `TrainStep.single_view`
+(render, the loss and its gradient, the rasterizer's VJP, then the update
+of both Adam chains under the loss guard, `TrainStep.update`); the
+position group's rate is `position_learning_rate * decay_rate **
+ceil(count / decay_interval)`.
 
 With `batch_size` B > 1 a step takes B views through
 `parallel/sharding.py`: the views are split over the ranks of the
@@ -73,24 +60,18 @@ from .. import config as config_io
 from ..camera import CameraInfo
 from ..data.dataset import DatasetItem, ImagePoseDataset, PrefetchLoader
 from ..models.scene import GaussianPointCloudScene, SceneConfig
-from ..ops.rasterizer import (BackwardStats, RasterizeResult,
-                              RasterizerConfig, _no_mark, rasterize,
-                              rasterize_with_vjp)
-from ..ops.sh import feature_sh_band_mask
+from ..ops.rasterizer import RasterizerConfig, _no_mark, rasterize
 from ..parallel.sharding import (make_data_parallel_train_step, make_mesh,
                                  replicate_scene)
 from ..utils.profiling import TraceWindow, span
 from .adam import AdamGroup, AdamState, adam_init, exponential_decay_lr
-from .adam_cuda import (combine_feature_gradients, keep_if_ok,
-                        optimizer_update)
-from .adam_cuda import contain_gradients  # noqa: F401 (imported from here)
 from .checkpoint import load_checkpoint, save_checkpoint
 from .controller import (AdaptiveControllerConfig, ControllerState,
-                         count_round, densify_step, reset_alpha,
-                         update_stats)
+                         count_round, densify_step, reset_alpha)
 from .loss import LossFunction, LossFunctionConfig
 from .loss_cuda import image_loss
 from .ssim import psnr as psnr_fn
+from .step import TrainStep
 
 
 @dataclasses.dataclass
@@ -166,18 +147,6 @@ class TrainConfig:
         config_io.to_yaml_file(self, path)
 
 
-def _grad_group_scale(config: RasterizerConfig) -> np.ndarray:
-    """(56,) per-feature scale of the rasterizer-path gradients."""
-    scale = np.full((56,), config.grad_high_order_color_factor, np.float32)
-    scale[0:4] = config.grad_q_factor
-    scale[4:7] = config.grad_s_factor
-    scale[7] = config.grad_alpha_factor
-    scale[8] = config.grad_color_factor
-    scale[24] = config.grad_color_factor
-    scale[40] = config.grad_color_factor
-    return scale
-
-
 def _scale_schedules_for_batch(config: TrainConfig) -> TrainConfig:
     """A copy of `config` for `batch_size` B > 1: with
     `scale_schedules_with_batch`, the iteration schedules (warm-up,
@@ -223,69 +192,6 @@ def _scale_schedules_for_batch(config: TrainConfig) -> TrainConfig:
         scaled.half_downsample_factor_interval,
         scaled.position_learning_rate_decay_interval)
     return scaled
-
-
-def normalize_quaternions(feats: torch.Tensor) -> torch.Tensor:
-    """The features with each stored quaternion normalized; the norm is
-    floored so that an all-zero padding slot stays 0."""
-    qnorm = feats[:, 0:4] / torch.clamp(torch.linalg.norm(
-        feats[:, 0:4], dim=1, keepdim=True), min=1e-12)
-    return torch.cat([qnorm, feats[:, 4:]], dim=1)
-
-
-class ViewGradients(NamedTuple):
-    """One view's loss and raw gradients (`view_gradients`)."""
-    loss: torch.Tensor           # () detached
-    l1: torch.Tensor
-    ssim_loss: torch.Tensor
-    image: torch.Tensor          # the clipped render (H, W, 3)
-    grad_pc: torch.Tensor        # (N, 3)
-    grad_feats_raster: torch.Tensor  # (N, 56), the rasterizer path's
-    # (N, 56), the loss's own (the regularizer's); None when the loss does
-    # not read the features
-    grad_feats_direct: Optional[torch.Tensor]
-    grad_scale: torch.Tensor     # (56,) per-group scale of the raster path
-    band_mask: torch.Tensor      # (56,) the active SH bands
-    stats: BackwardStats
-    result: RasterizeResult      # no autograd graph
-
-    @property
-    def grad_feats(self) -> torch.Tensor:
-        """(N, 56): the rasterizer path's gradients scaled and band-masked,
-        plus the loss's own."""
-        return combine_feature_gradients(
-            self.grad_feats_raster, self.grad_scale, self.band_mask,
-            self.grad_feats_direct)
-
-
-def view_gradients(scene, feats, image_gt, q, t, camera_info, raster_config,
-                   loss_fn, grad_scale, band_mask,
-                   mark=_no_mark) -> ViewGradients:
-    """Render one view with `feats` (quaternions normalized), take the loss
-    on the image clipped to [0, 1] and its gradient with respect to the
-    render (`image_loss`) and, by autograd, the regularizer's with respect
-    to the features when it is on, then the rasterizer's VJP. The
-    rasterizer-path feature gradients are scaled per group and masked to
-    the active SH bands; the regularizer's are added unscaled."""
-    result, vjp_fn = rasterize_with_vjp(
-        scene.point_cloud, feats, scene.point_invalid_mask,
-        scene.point_object_id, q, t, camera_info, raster_config, mark=mark)
-    with span("loss", mark):
-        terms = image_loss(result.image, image_gt,
-                           loss_fn.config.lambda_value)
-        loss, g_feats_direct = terms.loss, None
-        if loss_fn.config.enable_regularization:
-            feats_leaf = feats.detach().requires_grad_(True)
-            with torch.enable_grad():
-                reg = loss_fn.regularization_term(scene.point_invalid_mask,
-                                                  feats_leaf)
-                g_feats_direct, = torch.autograd.grad(reg, feats_leaf)
-            loss = loss + reg.detach()
-
-    grad_pc, grad_feats_raster, stats = vjp_fn(terms.grad)
-    return ViewGradients(loss, terms.l1, terms.ssim_loss, terms.image,
-                         grad_pc, grad_feats_raster, g_feats_direct,
-                         grad_scale, band_mask, stats, result)
 
 
 def _downsample_item(item: DatasetItem, factor: int) -> DatasetItem:
@@ -420,15 +326,11 @@ class GaussianPointCloudTrainer:
         self.data_generator = torch.Generator().manual_seed(config.seed)
         self.opt_features = adam_init(self.scene.point_cloud_features)
         self.opt_positions = adam_init(self.scene.point_cloud)
-        # each group's Adam, also callable as (param, grad, state)
-        self._update_features = AdamGroup(config.feature_learning_rate,
-                                          *self.betas)
-        self._update_positions = AdamGroup(self._position_learning_rate,
-                                           *self.betas)
-        self._grad_scale = torch.as_tensor(
-            _grad_group_scale(config.rasterisation_config),
-            device=self.device)
-        self._band_masks = {}
+        # what every step holds fixed, each group's Adam among it
+        self.train_step = TrainStep(
+            config.rasterisation_config, self.loss_fn,
+            AdamGroup(config.feature_learning_rate, *self.betas),
+            AdamGroup(self._position_learning_rate, *self.betas))
         self._batch_steps = {}
         self._val_cache = None
         # the epoch's view permutation and the position in it
@@ -493,12 +395,6 @@ class GaussianPointCloudTrainer:
     # one step
     # ------------------------------------------------------------------
 
-    def _band_mask(self, sh_band: int) -> torch.Tensor:
-        if sh_band not in self._band_masks:
-            self._band_masks[sh_band] = feature_sh_band_mask(
-                sh_band, device=self.device)
-        return self._band_masks[sh_band]
-
     def _position_learning_rate(self, count: torch.Tensor) -> torch.Tensor:
         """The position group's rate after `count` updates."""
         cfg = self.config
@@ -516,44 +412,16 @@ class GaussianPointCloudTrainer:
         stage (those of `rasterize_with_vjp`, "loss" and "adam"), a timing
         hook; each stage is a span of that name."""
         with span("step"):
-            scene = self.scene
-            feats = normalize_quaternions(scene.point_cloud_features)
-            view = view_gradients(
-                scene, feats, image_gt, q, t, camera_info,
-                self.config.rasterisation_config, self.loss_fn,
-                self._grad_scale, self._band_mask(sh_band), mark)
-            with span("adam", mark):
-                loss_ok = torch.isfinite(view.loss)
-                up = optimizer_update(
-                    feats, view.grad_feats_raster, scene.point_cloud,
-                    view.grad_pc, self.opt_features, self.opt_positions,
-                    self._update_features, self._update_positions, loss_ok,
-                    view.grad_scale, view.band_mask, view.grad_feats_direct)
-                self.opt_features, self.opt_positions = (up.opt_features,
-                                                         up.opt_positions)
-                self.scene = scene._replace(point_cloud=up.pc,
-                                            point_cloud_features=up.feats)
-                aux = view.result.aux
-                self.ctrl_state = keep_if_ok(
-                    loss_ok, update_stats(self.ctrl_state, view.stats,
-                                          up.grad_pc, aux.in_frustum),
-                    self.ctrl_state)
+            out = self.train_step.single_view(
+                self.scene, self.opt_features, self.opt_positions,
+                self.ctrl_state, image_gt, q, t, sh_band, camera_info,
+                self._set_state, mark)
+        return StepOutput(*out)
 
-            metrics = {
-                "loss": view.loss, "l1": view.l1,
-                "ssim_loss": view.ssim_loss,
-                "psnr": psnr_fn(view.image, image_gt),
-                "ssim": 1.0 - view.ssim_loss,
-                "total_keys": aux.total_keys,
-                "nonfinite_points": aux.nonfinite_points,
-                "nonfinite_grad_rows": up.nonfinite_grad_rows,
-                "skipped_nonfinite_step": (~loss_ok).to(torch.int32),
-            }
-        return StepOutput(
-            metrics, (view.stats, aux.in_frustum, aux.point_depth,
-                      aux.point_uv),
-            (view.image, view.result.depth,
-             view.result.pixel_valid_point_count))
+    def _set_state(self, new):
+        """The training state after a step's update (`step.Updated`)."""
+        (self.scene, self.opt_features, self.opt_positions,
+         self.ctrl_state) = new[:4]
 
     def batch_step(self, images: torch.Tensor, qs: torch.Tensor,
                    ts: torch.Tensor, intrinsics, sh_band: int,
@@ -565,8 +433,7 @@ class GaussianPointCloudTrainer:
         key = (camera_info.camera_height, camera_info.camera_width)
         if key not in self._batch_steps:
             self._batch_steps[key] = make_data_parallel_train_step(
-                self.mesh, camera_info, self.config.rasterisation_config,
-                self.loss_fn, self._update_features, self._update_positions)
+                self.mesh, camera_info, self.train_step)
         with span("step"):
             (self.scene, self.opt_features, self.opt_positions,
              self.ctrl_state, metrics, densify_inputs,

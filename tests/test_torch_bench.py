@@ -37,7 +37,7 @@ from taichi_3d_gaussian_splatting_tpu.training import loss as JL
 from taichi_3d_gaussian_splatting_torch import bench as tbench
 from taichi_3d_gaussian_splatting_torch.models.scene import (
     GaussianPointCloudScene as TScene, SceneConfig as TSceneConfig)
-from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
+from taichi_3d_gaussian_splatting_torch.ops import _build
 from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
     RasterizerConfig as TRasterizerConfig)
 
@@ -246,12 +246,12 @@ def test_record_at_64x48_on_the_cpu(monkeypatch):
     cam = tbench.bench_camera(48, 64, tbench.FOCAL * 64 / tbench.W)
     cfg = TRasterizerConfig(near_plane=tbench.NEAR, far_plane=tbench.FAR,
                             rgb_only=True)
-    BC.reset_launch_counts()
+    _build.reset_launch_counts()
     frame_ms, aux = tbench.measure_render(pc, feats, cam, cfg, CPU, iters=2,
                                           warmup=1)
     train_ms = tbench.measure_train_step(pc, feats, cam, CPU, reps=1,
                                          warmup=1)
-    assert all(v == 0 for v in BC.launch_counts.values())
+    assert sum(_build.launch_counts.values()) == 0
     assert frame_ms > 0 and all(ms > 0 for ms in train_ms)
     name, power = tbench.device_info(CPU)
     record = tbench.build_record(2000, frame_ms, "packed8", aux, "torch-cpu",

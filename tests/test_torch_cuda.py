@@ -17,6 +17,7 @@ import torch
 from taichi_3d_gaussian_splatting_torch.camera import CameraInfo
 from taichi_3d_gaussian_splatting_torch.models.scene import (
     GaussianPointCloudScene)
+from taichi_3d_gaussian_splatting_torch.ops import _build
 from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
 from taichi_3d_gaussian_splatting_torch.ops import projection as P
 from taichi_3d_gaussian_splatting_torch.ops import projection_cuda as PC
@@ -72,11 +73,11 @@ def test_kernel_matches_plain(cuda, seed, alpha, label, cfg, fmt, rgb_only):
     args = (slabs[fmt], b.tile_starts, b.tile_ends)
     kw = dict(num_tiles=cam.num_tiles, tiles_per_row=cam.tiles_per_row,
               rgb_only=rgb_only)
-    before = dict(BC.launch_counts)
+    before = _build.launch_counts.copy()
     got = BC.blend_forward(*args, **kw)
     torch.cuda.synchronize()
     name = "blend_forward_rgb" if rgb_only else "blend_forward"
-    assert BC.launch_counts[name] == before[name] + 1
+    assert _build.launch_counts[name] == before[name] + 1
     ref = BC.blend_forward_torch(*args, **kw).cpu().numpy()
     got = got.cpu().numpy()
     for row in (BC.OUT_R, BC.OUT_G, BC.OUT_B, BC.OUT_ACC_ALPHA, BC.OUT_NORM):
@@ -127,10 +128,10 @@ def test_projection_kernels_match_plain(cuda, edit):
         _projection_case(edit, cuda)
     inputs = PC.projection_inputs(q_cam, t_cam, t, cam, 0.1, 100.0, mask,
                                   object_edit)
-    before = dict(PC.launch_counts)
+    before = _build.launch_counts.copy()
     got, logw = PC.project_forward(pc, feats, invalid, obj, inputs)
     torch.cuda.synchronize()
-    assert PC.launch_counts["project_forward"] == \
+    assert _build.launch_counts["project_forward"] == \
         before["project_forward"] + 1
     want = P.compute_point_attributes(pc, feats, invalid, obj, q_cam, t_cam,
                                       t, cam, 0.1, 100.0, mask,
@@ -148,7 +149,7 @@ def test_projection_kernels_match_plain(cuda, edit):
         size=(9, 60)).astype(np.float32), device=cuda)
     got = PC.project_backward(pc, feats, obj, inputs, cot)
     torch.cuda.synchronize()
-    assert PC.launch_counts["project_backward"] == \
+    assert _build.launch_counts["project_backward"] == \
         before["project_backward"] + 1
     want = P.project_points_backward_torch(pc, feats, obj, q_cam, t_cam, t,
                                            cam, 0.1, cot, mask,
@@ -170,15 +171,15 @@ def test_rasterize_with_vjp_launches_the_projection_kernels(cuda):
     grads = []
     for device in (cuda, torch.device("cpu")):
         _, _, _, (scene, q, t) = _inputs(seed, alpha, cfg, device)
-        PC.reset_launch_counts()
+        _build.reset_launch_counts()
         _, vjp_fn = rasterize_with_vjp(*scene, q, t,
                                        CameraInfo(camera_intrinsics(), 32,
                                                   32),
                                        RasterizerConfig(**cfg))
         gp, gf, _ = vjp_fn(torch.ones((32, 32, 3), device=device))
         want = 1 if device.type == "cuda" else 0
-        assert PC.launch_counts == {"project_forward": want,
-                                    "project_backward": want}
+        assert (_build.launch_counts["project_forward"],
+                _build.launch_counts["project_backward"]) == (want, want)
         grads.append((gp.cpu().numpy(), gf.cpu().numpy()))
     for a, b in zip(*grads):
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
@@ -223,10 +224,10 @@ def test_backward_kernel_matches_plain(cuda, seed, alpha, label, cfg):
     pixel_in[:, 3:6] = fwd[:, 0:3]
     pixel_in[:, BC.PIXEL_IN_LAST] = fwd[:, BC.OUT_LAST_EFF]
     args = (slabs["wide16"], b.tile_starts, b.tile_ends, pixel_in)
-    before = BC.launch_counts["blend_backward"]
+    before = _build.launch_counts["blend_backward"]
     got = [x.cpu().numpy() for x in BC.blend_backward(*args, **kw)]
     torch.cuda.synchronize()
-    assert BC.launch_counts["blend_backward"] == before + 1
+    assert _build.launch_counts["blend_backward"] == before + 1
     ref = [x.cpu().numpy() for x in BC.blend_backward_torch(*args, **kw)]
     float_rows = [r for r in BC.GRAD_ROWS if r != BC.GROW_NUM_PIXELS]
     np.testing.assert_allclose(got[0][float_rows], ref[0][float_rows],
@@ -353,11 +354,11 @@ def test_batch_steps_on_card_match_cpu(cuda, tmp_path):
     group) on the card and on the CPU: the losses to 1e-4 relative, every
     state array at rtol 2e-3 / atol 1e-4; K2 and K3 launch once per view."""
     write_dataset(str(tmp_path))
-    before = dict(BC.launch_counts)
+    before = _build.launch_counts.copy()
     gpu = batch_step_state(cuda, str(tmp_path))
     torch.cuda.synchronize()
     for name in ("blend_forward", "blend_backward"):
-        assert BC.launch_counts[name] - before[name] == 4, name
+        assert _build.launch_counts[name] - before[name] == 4, name
     cpu = batch_step_state(torch.device("cpu"), str(tmp_path))
     np.testing.assert_allclose(gpu["losses"], cpu["losses"], rtol=1e-4)
     assert gpu["state"].keys() == cpu["state"].keys()
@@ -373,10 +374,10 @@ def test_optimizer_kernel_matches_plain(cuda, case, n):
     card, the count of zeroed slots included, at the 2.08M training cell's
     4,160,000 slots and at an odd count; one launch a call."""
     args, kwargs = optimizer_inputs(case, n, cuda, seed=n)
-    before = TA.launch_counts["optimizer_update"]
+    before = _build.launch_counts["optimizer_update"]
     got = TA.optimizer_update(*args, **kwargs)
     torch.cuda.synchronize()
-    assert TA.launch_counts["optimizer_update"] == before + 1
+    assert _build.launch_counts["optimizer_update"] == before + 1
     want = TA.optimizer_update_torch(*args, **kwargs)
     assert_bitwise_equal(tuple(got), tuple(want), case)
     c = OPTIMIZER_CASES[case]
@@ -388,11 +389,11 @@ def test_optimizer_kernel_launches_once_a_step(cuda, tmp_path):
     """One optimizer kernel launch a step on the card: a single-view step
     and two batch steps."""
     write_dataset(str(tmp_path))
-    before = TA.launch_counts["optimizer_update"]
+    before = _build.launch_counts["optimizer_update"]
     one_step_state(str(tmp_path), "cuda")
-    assert TA.launch_counts["optimizer_update"] == before + 1
+    assert _build.launch_counts["optimizer_update"] == before + 1
     batch_step_state(cuda, str(tmp_path))
-    assert TA.launch_counts["optimizer_update"] == before + 3
+    assert _build.launch_counts["optimizer_update"] == before + 3
 
 
 @pytest.mark.parametrize("h, w", [(544, 976), (45, 77)])
@@ -405,10 +406,10 @@ def test_image_loss_kernel_matches_plain(cuda, h, w):
     the same tolerances, the clamped render exactly; one launch a call,
     and a second call bit for bit the first."""
     render, gt = loss_images(h, w, seed=h + w, device=cuda)
-    before = TLC.launch_counts["image_loss"]
+    before = _build.launch_counts["image_loss"]
     got = TLC.image_loss(render, gt, 0.2)
     torch.cuda.synchronize()
-    assert TLC.launch_counts["image_loss"] == before + 1
+    assert _build.launch_counts["image_loss"] == before + 1
     want = TLC.image_loss_torch(render, gt, 0.2)
     for name in ("loss", "l1", "ssim_loss"):
         np.testing.assert_allclose(float(getattr(got, name)),
@@ -449,7 +450,7 @@ def test_image_loss_launches_once_a_step_without_sync(cuda, tmp_path):
 
     trainer.step(*args, 0, item.camera_info)
     torch.cuda.synchronize()
-    before = TLC.launch_counts["image_loss"]
+    before = _build.launch_counts["image_loss"]
     try:
         trainer.step(*args, 0, item.camera_info, mark=mark)
     finally:
@@ -457,7 +458,7 @@ def test_image_loss_launches_once_a_step_without_sync(cuda, tmp_path):
     trainer.step(*args, 0, item.camera_info)
     torch.cuda.synchronize()
     trainer.logger.close()
-    assert TLC.launch_counts["image_loss"] == before + 2
+    assert _build.launch_counts["image_loss"] == before + 2
     assert marks.index("forward blend") + 1 == marks.index("loss")
 
 
@@ -478,9 +479,9 @@ def test_viewer_on_card_matches_cpu(cuda, tmp_path):
         for state in states:
             if key:
                 state.handle_key(key)
-        before = BC.launch_counts["blend_forward_rgb"]
+        before = _build.launch_counts["blend_forward_rgb"]
         gpu = states[0].frame().cpu().numpy()
-        assert BC.launch_counts["blend_forward_rgb"] == before + 1
+        assert _build.launch_counts["blend_forward_rgb"] == before + 1
         np.testing.assert_allclose(gpu, states[1].frame().numpy(),
                                    rtol=RTOL, atol=ATOL, err_msg=key)
 

@@ -1,7 +1,11 @@
 """The port stands alone: importing any of its modules loads no JAX, the
 blend wrapper counts only real kernel launches, and a request for anything
-but the CPU path either launches the CUDA kernel or raises."""
+but the CPU path either launches the CUDA kernel or raises. Its layers
+import one way (`ops/` under `training/` under `parallel/` under the
+trainer), and only `ops/_build.py` touches the kernel library."""
 
+import ast
+import glob
 import importlib
 import os
 import subprocess
@@ -13,9 +17,8 @@ import torch
 from taichi_3d_gaussian_splatting_torch.ops import _build
 from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
 
-NO_LAUNCHES = {"blend_forward_rgb": 0, "blend_forward": 0,
-               "blend_backward": 0}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = "taichi_3d_gaussian_splatting_torch"
 PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch",
     "taichi_3d_gaussian_splatting_torch.camera",
@@ -38,6 +41,7 @@ PORT_MODULES = [
     "taichi_3d_gaussian_splatting_torch.training.loss",
     "taichi_3d_gaussian_splatting_torch.training.controller",
     "taichi_3d_gaussian_splatting_torch.training.checkpoint",
+    "taichi_3d_gaussian_splatting_torch.training.step",
     "taichi_3d_gaussian_splatting_torch.training.trainer",
     "taichi_3d_gaussian_splatting_torch.train",
     "taichi_3d_gaussian_splatting_torch.ops.geometry",
@@ -84,14 +88,14 @@ def test_port_modules_import_no_jax():
 
 
 def test_cpu_blend_does_not_count_launches():
-    BC.reset_launch_counts()
+    _build.reset_launch_counts()
     ranges = torch.tensor([0, 1], dtype=torch.int32)
     slab = torch.zeros((16, 2))
     slab[BC.ROW_LOGW] = -1.0
     out = BC.blend_forward(slab, ranges, ranges + 1, num_tiles=2,
                            tiles_per_row=2, rgb_only=False)
     assert out[:, BC.OUT_ACC_ALPHA].max() > 0
-    assert BC.launch_counts == NO_LAUNCHES
+    assert sum(_build.launch_counts.values()) == 0
 
 
 def test_other_devices_raise_without_fallback():
@@ -103,7 +107,7 @@ def test_other_devices_raise_without_fallback():
                          torch.empty(2, dtype=torch.int32, device=meta),
                          torch.empty(2, dtype=torch.int32, device=meta),
                          num_tiles=2, tiles_per_row=2, rgb_only=True)
-    assert BC.launch_counts == NO_LAUNCHES
+    assert sum(_build.launch_counts.values()) == 0
 
 
 def test_backward_on_other_devices_raises():
@@ -114,7 +118,7 @@ def test_backward_on_other_devices_raises():
                           torch.empty(2, dtype=torch.int32, device=meta),
                           torch.empty((2, 8, 256), device=meta),
                           num_tiles=2, tiles_per_row=2)
-    assert BC.launch_counts == NO_LAUNCHES
+    assert sum(_build.launch_counts.values()) == 0
 
 
 class _OnCuda:
@@ -143,18 +147,18 @@ def test_cuda_launch_without_cuda_raises(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     if os.path.isfile("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has a CUDA toolkit")
-    BC.reset_launch_counts()
+    _build.reset_launch_counts()
     ranges = _OnCuda(torch.zeros(2, dtype=torch.int32))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         BC.blend_forward(_OnCuda(torch.zeros((8, 4), dtype=torch.int32)),
                          ranges, ranges, num_tiles=2, tiles_per_row=2,
                          rgb_only=True)
-    assert BC.launch_counts == NO_LAUNCHES
+    assert sum(_build.launch_counts.values()) == 0
     with pytest.raises(RuntimeError, match="nvcc not found"):
         BC.blend_backward(_OnCuda(torch.zeros((16, 4))), ranges, ranges,
                           _OnCuda(torch.zeros((2, 8, 256))), num_tiles=2,
                           tiles_per_row=2)
-    assert BC.launch_counts == NO_LAUNCHES
+    assert sum(_build.launch_counts.values()) == 0
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library()
 
@@ -245,3 +249,123 @@ def test_probe_cuda_launch_without_cuda_raises(monkeypatch):
         assert sum(module.launch_counts.values()) == 0
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_probe_library()
+
+
+def _package_modules():
+    """(dotted name, package, syntax tree) of every module of the port;
+    package is the dotted name of the package the module's relative
+    imports start from."""
+    root = os.path.join(REPO, PACKAGE)
+    for path in sorted(glob.glob(os.path.join(root, "**", "*.py"),
+                                 recursive=True)):
+        parts = os.path.relpath(path, REPO)[:-3].split(os.sep)
+        package = ".".join(parts[:-1])
+        if parts[-1] == "__init__":
+            parts.pop()
+        with open(path) as f:
+            yield ".".join(parts), package, ast.parse(f.read(), path)
+
+
+def _imported(package, tree):
+    """Every module a module of `package` imports anywhere in its body, as
+    an absolute name; `from m import x` gives both m and m.x (x may be a
+    submodule)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module
+            if node.level:
+                parts = package.split(".")
+                parts = parts[:len(parts) - node.level + 1]
+                base = ".".join(parts + ([base] if base else []))
+            yield base
+            yield from (f"{base}.{a.name}" for a in node.names)
+
+
+def _imports_of(prefixes):
+    return {name: set(_imported(package, tree))
+            for name, package, tree in _package_modules()
+            if name.startswith(prefixes)}
+
+
+def test_the_layers_below_the_trainer_do_not_import_it():
+    """Nothing under parallel/ or ops/ imports the training loop: the batch
+    step takes its per-view gradients and its update from
+    training/step.py."""
+    trainer = f"{PACKAGE}.training.trainer"
+    found = _imports_of((f"{PACKAGE}.parallel", f"{PACKAGE}.ops"))
+    bad = {name: sorted(m for m in mods if m.startswith(trainer))
+           for name, mods in found.items()}
+    assert not {k: v for k, v in bad.items() if v}
+    assert f"{PACKAGE}.training.step" in found[f"{PACKAGE}.parallel.sharding"]
+
+
+def test_ops_import_neither_training_nor_parallel():
+    found = _imports_of((f"{PACKAGE}.ops",))
+    assert f"{PACKAGE}.ops._build" in found
+    bad = {name: sorted(m for m in mods if m.startswith(
+        (f"{PACKAGE}.training", f"{PACKAGE}.parallel")))
+        for name, mods in found.items()}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_only_the_build_module_touches_the_kernel_library():
+    """Outside ops/_build.py (and the probes, which have a library of their
+    own) no module names a `t3dgs_` symbol, loads the library, passes a
+    stream or keeps a launch count: every wrapper goes through
+    `_build.on_card` and `_build.launch`."""
+    bad = []
+    for name, _, tree in _package_modules():
+        if name == f"{PACKAGE}.ops._build" or name.startswith(
+                f"{PACKAGE}.probes"):
+            continue
+        for node in ast.walk(tree):
+            text = (node.attr if isinstance(node, ast.Attribute)
+                    else node.id if isinstance(node, ast.Name)
+                    else node.value if isinstance(node, ast.Constant)
+                    and isinstance(node.value, str) else None)
+            if text is None:
+                continue
+            if (text.startswith("t3dgs_")
+                    or text in ("load_library", "cuda_stream")
+                    or (text == "launch_counts" and isinstance(
+                        getattr(node, "ctx", None), ast.Store))):
+                bad.append((name, node.lineno, text))
+    assert not bad
+    assert callable(_build.on_card) and callable(_build.launch)
+
+
+@pytest.mark.parametrize("where", [torch.zeros(2), torch.device("cpu"),
+                                   "cpu", torch.zeros(0, device="meta")],
+                         ids=["cpu-tensor", "cpu-device", "cpu-name", "meta"])
+def test_on_card_takes_a_tensor_or_a_device(where):
+    """The CPU runs the plain version; any device but the CPU and CUDA
+    raises, and neither loads the kernel library."""
+    if str(getattr(where, "device", where)) == "cpu":
+        assert _build.on_card(where, "test") is False
+    else:
+        with pytest.raises(RuntimeError, match="test runs on cpu or cuda"):
+            _build.on_card(where, "test")
+
+
+def test_smoke_launch_checks_read_a_snapshot_of_the_registry():
+    """chip_smoke.py's launch checks take a copy of `_build.launch_counts`:
+    a kernel that never launched reads 0 there (a render-only phase has
+    launched no backward kernel), and counts out of step fail."""
+    from chip_smoke import check_loss_launches, check_projection_launches
+
+    def fail(msg):
+        raise AssertionError(msg)
+
+    render = _build.launch_counts.copy()
+    render.update(blend_forward_rgb=3, project_forward=3)
+    check_projection_launches(render, "render", fail)
+    train = render.copy()
+    train.update(blend_forward=2, project_forward=2, blend_backward=2,
+                 project_backward=2, image_loss=2)
+    check_projection_launches(train, "train", fail)
+    check_loss_launches(train, "train", fail)
+    train["project_backward"] += 1
+    with pytest.raises(AssertionError, match="projection kernels"):
+        check_projection_launches(train, "train", fail)

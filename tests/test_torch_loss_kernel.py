@@ -21,7 +21,7 @@ import torch
 from taichi_3d_gaussian_splatting_torch.training import loss as TL
 from taichi_3d_gaussian_splatting_torch.training import loss_cuda as TLC
 from taichi_3d_gaussian_splatting_torch.training import ssim as TS
-from taichi_3d_gaussian_splatting_torch.training import trainer as TT
+from taichi_3d_gaussian_splatting_torch.training import step as TSTEP
 
 from torch_train_fixtures import (assert_bitwise_equal, batch_step_state,
                                   loss_images, one_step_state, write_dataset)
@@ -184,19 +184,19 @@ def test_plain_version_is_the_replaced_chain(h, w):
 
 def _parent_view_gradients(scene, feats, image_gt, q, t, camera_info,
                            raster_config, loss_fn, grad_scale, band_mask,
-                           mark=TT._no_mark):
-    """trainer.view_gradients with the loss stage it had before
+                           mark=TSTEP._no_mark):
+    """step.view_gradients with the loss stage it had before
     image_loss."""
-    result, vjp_fn = TT.rasterize_with_vjp(
+    result, vjp_fn = TSTEP.rasterize_with_vjp(
         scene.point_cloud, feats, scene.point_invalid_mask,
         scene.point_object_id, q, t, camera_info, raster_config, mark=mark)
-    with TT.span("loss", mark):
+    with TSTEP.span("loss", mark):
         loss, l1, ld_ssim, g_image, img, g_feats_direct = _todays_loss_stage(
             result.image, image_gt, loss_fn, scene.point_invalid_mask, feats)
     grad_pc, grad_feats_raster, stats = vjp_fn(g_image)
-    return TT.ViewGradients(loss, l1, ld_ssim, img, grad_pc,
-                            grad_feats_raster, g_feats_direct, grad_scale,
-                            band_mask, stats, result)
+    return TSTEP.ViewGradients(loss, l1, ld_ssim, img, grad_pc,
+                               grad_feats_raster, g_feats_direct, grad_scale,
+                               band_mask, stats, result)
 
 
 @pytest.mark.parametrize("regularize", [True, False])
@@ -204,16 +204,26 @@ def test_steps_match_the_replaced_loss_stage(tmp_path, monkeypatch,
                                              regularize):
     """A single-view step and two batch steps on the CPU leave the same
     loss and state, bit for bit, as with the loss stage before image_loss
-    (the regularizer on, as the trainer's default, and off)."""
+    (the regularizer on, as the trainer's default, and off), patched in
+    once, where both steps take it: once for the single view, once for
+    each of the batch steps' four views."""
     root = str(tmp_path)
     write_dataset(root)
     over = {"loss_function_config": {"enable_regularization": regularize}}
     cpu = torch.device("cpu")
     single = one_step_state(root, "cpu", **over)
     batch = batch_step_state(cpu, root, **over)
-    monkeypatch.setattr(TT, "view_gradients", _parent_view_gradients)
+    calls = []
+
+    def parent(*args, **kwargs):
+        calls.append(len(calls))
+        return _parent_view_gradients(*args, **kwargs)
+
+    monkeypatch.setattr(TSTEP, "view_gradients", parent)
     parent_single = one_step_state(root, "cpu", **over)
+    assert len(calls) == 1
     parent_batch = batch_step_state(cpu, root, **over)
+    assert len(calls) == 1 + 4
     assert single[0] == parent_single[0]
     assert batch["losses"] == parent_batch["losses"]
     for got, want in ((single[1], parent_single[1]),

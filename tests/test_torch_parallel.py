@@ -232,7 +232,8 @@ def test_adam_betas_match_jax(tmp_path, batch_size, scale_betas):
         updates, jstate = jt.feature_optimizer.update(jnp.asarray(g), jstate,
                                                       jp)
         jp = optax.apply_updates(jp, updates)
-        tp, tstate = tt._update_features(tp, torch.as_tensor(g), tstate)
+        tp, tstate = tt.train_step.features(tp, torch.as_tensor(g),
+                                             tstate)
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6,
                                atol=1e-7)
     np.testing.assert_allclose(tstate.nu.numpy(), np.asarray(jstate[0].nu),
@@ -344,8 +345,7 @@ def test_batch_not_a_multiple_of_ranks_raises(tmp_path):
     assert trainer.mesh == TP.Mesh(0, 1, False)
     step = TP.make_data_parallel_train_step(
         TP.Mesh(0, 2, False), trainer.train_dataset[0].camera_info,
-        trainer.config.rasterisation_config, trainer.loss_fn,
-        trainer._update_features, trainer._update_positions)
+        trainer.train_step)
     images, qs, ts, intrs, _ = F.batch_views(trainer, [0, 1, 2])
     with pytest.raises(ValueError, match="does not split"):
         step(trainer.scene, trainer.opt_features, trainer.opt_positions,

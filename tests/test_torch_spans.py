@@ -205,6 +205,27 @@ def test_marks_keep_their_names_and_order(dataset, spans_on):
     assert step_marks == STEP_MARKS
 
 
+def test_the_adam_mark_sees_the_updated_state(dataset):
+    """At the `adam` mark of a single-view step the trainer already holds
+    the state after the update, as a caller that reads it there expects;
+    at every earlier mark it still holds the state before."""
+    trainer = _trainer(dataset)
+
+    def state():
+        return (trainer.scene, trainer.opt_features, trainer.opt_positions,
+                trainer.ctrl_state)
+
+    before, seen = state(), {}
+    trainer.step(*_view(trainer), mark=lambda stage: seen.update(
+        {stage: state()}))
+    after = state()
+    assert list(seen) == STEP_MARKS
+    for stage in STEP_MARKS[:-1]:
+        assert all(a is b for a, b in zip(seen[stage], before)), stage
+    assert all(a is b for a, b in zip(seen["adam"], after))
+    assert int(after[1].count) == int(before[1].count) + 1
+
+
 def _results(dataset):
     """Both frames' images, a VJP's gradients and two steps' state."""
     out = [_frame(True).image, _frame(False).image]

@@ -32,6 +32,7 @@ from taichi_3d_gaussian_splatting_tpu.training import trainer as JT
 from taichi_3d_gaussian_splatting_torch import config as tconfig
 from taichi_3d_gaussian_splatting_torch.models.scene import (
     GaussianPointCloudScene as TScene)
+from taichi_3d_gaussian_splatting_torch.ops import _build
 from taichi_3d_gaussian_splatting_torch.ops import gaussian as TG
 from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
     BackwardStats as TStats)
@@ -40,6 +41,7 @@ from taichi_3d_gaussian_splatting_torch.training import loss as TL
 from taichi_3d_gaussian_splatting_torch.training import ssim as TS
 from taichi_3d_gaussian_splatting_torch.training import trainer as TT
 from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
+from taichi_3d_gaussian_splatting_torch.training import step as TSTEP
 from taichi_3d_gaussian_splatting_torch.training.adam import (
     adam_state_from_optax, adam_update)
 
@@ -476,10 +478,10 @@ def test_optimizer_update_matches_the_parent_chain(case):
     without scale or mask. The CPU launches no kernel."""
     args, kwargs = optimizer_inputs(case, 257, "cpu", seed=3)
     want = _parent_chain(*args, **kwargs)
-    before = dict(TA.launch_counts)
+    before = dict(_build.launch_counts)
     for fn in (TA.optimizer_update, TA.optimizer_update_torch):
         assert_bitwise_equal(tuple(fn(*args, **kwargs)), tuple(want), case)
-    assert TA.launch_counts == before
+    assert _build.launch_counts == before
     c = OPTIMIZER_CASES[case]
     zeroed = int(want[5])
     assert (zeroed > 0) == bool(c.get("bad_feats") or c.get("bad_pc"))
@@ -512,17 +514,24 @@ def _single_steps(root, steps=2):
 
 def test_steps_match_the_parent_chain(tmp_path, monkeypatch):
     """Two trainer steps and two batch steps on the CPU leave the same
-    state, bit for bit, as with the chain optimizer_update replaced in
-    both (patched in where each step takes it)."""
+    state, bit for bit, as with the chain optimizer_update replaced, patched
+    in once, where both steps take it: once a step in each."""
     write_dataset(str(tmp_path))
     root = str(tmp_path)
     single = _single_steps(root)
     batch = batch_step_state(torch.device("cpu"), root)
+    calls = []
+
+    def chain(*args, **kwargs):
+        calls.append(len(calls))
+        return _parent_chain(*args, **kwargs)
+
     with monkeypatch.context() as m:
-        m.setattr(TT, "optimizer_update", _parent_chain)
-        m.setattr(TA, "optimizer_update", _parent_chain)
+        m.setattr(TSTEP, "optimizer_update", chain)
         parent_single = _single_steps(root)
+        assert len(calls) == 2
         parent_batch = batch_step_state(torch.device("cpu"), root)
+        assert len(calls) == 2 + 2
     assert batch["losses"] == parent_batch["losses"]
     for got, want in ((single, parent_single),
                       (batch["state"], parent_batch["state"])):

@@ -1,8 +1,8 @@
 """Long-segment fixtures for the chunked blend kernels, the inputs
-chip_smoke.py and blend_kernel_times.py give the kernels at 976x544, and
-the work a blend does on an input: its (pixel, key) pairs by what each
-costs, its bytes and its bound (`work`). torch and numpy only (no JAX),
-so that both scripts use them on the card.
+chip_smoke.py gives the kernels at 976x544, and the work a blend does on
+an input: its (pixel, key) pairs by what each costs, its bytes and its
+bound (`work`). torch and numpy only (no JAX), so that chip_smoke.py uses
+them on the card.
 
 `long_segment_slab(chunk)` builds a slab whose tiles split into several
 chunks of `chunk` keys: 8 tiles (4 per row) of lengths 3C+7, C+1, C, 0, 1,
@@ -51,7 +51,7 @@ OPS_SKIPPED = 14
 OPS_SATURATING = 18
 OPS_CONTRIBUTING = {"blend_forward_rgb": 26, "blend_forward": 28,
                     "blend_backward": 68}
-# rasterize's settings in chip_smoke.py and blend_kernel_times.py
+# rasterize's settings in chip_smoke.py
 CFG_MAIN = dict(near_plane=0.4, far_plane=1000.0, max_tiles_per_point=32)
 # the long-segment fixture's column offset in the boundary fixture: its
 # first tile spans columns 2**24 - 3 .. 2**24 + 2,307
