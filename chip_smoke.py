@@ -855,8 +855,6 @@ def trace_train_phase(paths, root, card, fail):
     from taichi_3d_gaussian_splatting_torch.ops import blend_cuda as BC
     from taichi_3d_gaussian_splatting_torch.ops.rasterizer import (
         _project_and_bin)
-    from taichi_3d_gaussian_splatting_torch.training.step import (
-        normalize_quaternions)
     from taichi_3d_gaussian_splatting_torch.utils.profiling import (
         load_events, summarize_trace, trace_files)
 
@@ -894,14 +892,12 @@ def trace_train_phase(paths, root, card, fail):
     cam, images, qs, ts, intrs = trainer._device_cache(trainer.train_dataset,
                                                        1)
     scene = trainer.scene
-    feats = normalize_quaternions(scene.point_cloud_features)
     k2, k3 = [], []
     for v in range(images.shape[0]):
         view_cam = dataclasses.replace(cam, camera_intrinsics=intrs[v])
         with torch.no_grad():
             binning = _project_and_bin(
-                scene.point_cloud, feats, scene.point_invalid_mask,
-                scene.point_object_id, qs[v], ts[v], view_cam,
+                *scene, qs[v], ts[v], view_cam,
                 trainer.config.rasterisation_config, None)[3]
         kw = dict(num_tiles=view_cam.num_tiles,
                   tiles_per_row=view_cam.tiles_per_row)

@@ -63,11 +63,12 @@ from .ops import _build
 from .ops.rasterizer import (RasterizerConfig, _resolve_slab_format,
                              rasterize, rasterize_with_vjp)
 from .ops.sh import feature_sh_band_mask
-from .training.adam import AdamState, adam_init, adam_update
+from .training.adam import AdamGroup, AdamState, adam_init
+from .training.adam_cuda import optimizer_update
 from .training.controller import (AdaptiveControllerConfig, ControllerState,
                                   densify_step, update_stats)
 from .training.loss import LossFunction, LossFunctionConfig
-from .training.step import normalize_quaternions, view_gradients
+from .training.step import view_gradients
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -237,10 +238,11 @@ def _train_config() -> RasterizerConfig:
 
 def make_train_step(cam: CameraInfo, device):
     """bench.py's training step (`:352-375`) on `device`: `step(state) ->
-    (state, loss)`. The quaternions are normalized, the image clipped to
-    [0, 1] is held against a uniform image of `default_rng(1)`, and the
-    rasterizer's feature gradients are masked to SH band 3, with no
-    per-group scaling and no schedules."""
+    (state, loss)`. The image clipped to [0, 1] is held against a uniform
+    image of `default_rng(1)`, and the rasterizer's feature gradients are
+    masked to SH band 3, with no per-group scaling and no schedules; the
+    update is the trainer's `optimizer_update` (Adam on the normalized
+    quaternions)."""
     cfg = _train_config()
     q, t = _identity_pose(device)
     gt = torch.tensor(np.random.default_rng(1).uniform(
@@ -248,18 +250,19 @@ def make_train_step(cam: CameraInfo, device):
         device=device)
     loss_fn = LossFunction(LossFunctionConfig())
     band_mask = feature_sh_band_mask(3, device=device)
+    features, positions = AdamGroup(FEATURE_LR), AdamGroup(POSITION_LR)
 
     def step(state: TrainState):
-        feats = normalize_quaternions(state.point_cloud_features)
-        view = view_gradients(_scene(state.point_cloud, feats), feats, gt, q,
-                              t, cam, cfg, loss_fn, 1.0, band_mask)
-        feats, opt_features = adam_update(feats, view.grad_feats,
-                                          state.opt_features, FEATURE_LR)
-        pc, opt_positions = adam_update(state.point_cloud, view.grad_pc,
-                                        state.opt_positions, POSITION_LR)
+        view = view_gradients(
+            _scene(state.point_cloud, state.point_cloud_features), gt, q, t,
+            cam, cfg, loss_fn, 1.0, band_mask)
+        up = optimizer_update(
+            state.point_cloud_features, view.grad_feats, state.point_cloud,
+            view.grad_pc, state.opt_features, state.opt_positions, features,
+            positions, torch.isfinite(view.loss))
         ctrl = update_stats(state.ctrl, view.stats, view.grad_pc,
                             view.result.aux.in_frustum)
-        return TrainState(pc, feats, opt_features, opt_positions,
+        return TrainState(up.pc, up.feats, up.opt_features, up.opt_positions,
                           ctrl), view.loss
 
     return step

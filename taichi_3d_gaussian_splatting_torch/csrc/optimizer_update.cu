@@ -4,12 +4,21 @@
 // - the feature gradient (raw * group scale) * band mask + direct, when the
 //   scale is given (a single-view step), else the gradient as given (a
 //   batch step's sum);
+// - the quaternion: the step reads the stored features, and the projection
+//   normalizes q where it reads it with the norm held constant, so its
+//   gradient is the one with respect to q / |q| over |q|. Lane 0, which
+//   holds the whole quaternion and its gradient as one float4 each, takes
+//   the norm n = max(sqrt(q0^2 + q1^2 + q2^2 + q3^2), 1e-12) in registers,
+//   divides q by it and multiplies the gradient by it: Adam's parameter is
+//   q / |q| and its gradient the one with respect to that, an all-zero
+//   slot stays 0, and no step copies the features to normalize them;
 // - containment: a feature row or position row with a non-finite value is
 //   zeroed, and the slots where either was are counted;
 // - optax's Adam on both groups, in training/adam.py::adam_update's order
 //   of operations;
 // - the loss guard: parameters and moments stay as they were when the
-//   loss is not finite; the contained position gradient is written out.
+//   loss is not finite (the quaternion normalized); the contained position
+//   gradient is written out.
 //
 // It replaces no Pallas kernel: the JAX package leaves Adam to optax and
 // XLA fuses the update into a few loops. Eager torch ran the same chain as
@@ -20,7 +29,8 @@
 // (3 x 224); reads the position gradient, position, mu and nu (4 x 12) and
 // writes the position, mu, nu and the contained gradient (4 x 12): 1,888
 // bytes a slot (1,664 without a direct gradient), against some 20 float
-// operations a value. Design: a half-warp a slot. Lanes 0-13 each move one
+// operations a value (the normalization adds some 15 to lane 0 and no
+// bytes). Design: a half-warp a slot. Lanes 0-13 each move one
 // 16-byte vector of the 224-byte feature row, lane 14 the three position
 // values, so a warp reads two whole rows, 448 consecutive bytes, with one
 // load instruction per array; a ballot gives each row's finiteness without
@@ -95,6 +105,21 @@ __device__ __forceinline__ void adam(float grad, float& param, float& mu,
   }
 }
 
+// max(|q|, 1e-12), the squares summed in the order x, y, z, w; a NaN norm
+// stays NaN, as torch.clamp leaves it. The square root of a zero (a free
+// slot of the pool) takes adam()'s shorter way to the same bits.
+__device__ __forceinline__ float quaternion_norm(const float4& q) {
+  const float squares = q.x * q.x + q.y * q.y + q.z * q.z + q.w * q.w;
+  const float norm = squares == 0.f ? squares : sqrtf(squares);
+  return norm < 1e-12f ? 1e-12f : norm;
+}
+
+// c / norm for norm >= 1e-12, +inf or NaN: a zero c over a positive norm is
+// c itself, sign included, without the division's slow subroutine.
+__device__ __forceinline__ float over_norm(float c, float norm) {
+  return c == 0.f && norm > 0.f ? c : c / norm;
+}
+
 __device__ __forceinline__ bool finite4(const float4& a) {
   return isfinite(a.x) && isfinite(a.y) && isfinite(a.z) && isfinite(a.w);
 }
@@ -118,12 +143,14 @@ __global__ void __launch_bounds__(kBlock) optimizer_update_kernel(
   const bool active = row < n;
   const bool loss_ok = *loss_ok_ptr != 0;
 
-  float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 g = make_float4(0.f, 0.f, 0.f, 0.f), p = g;
+  float qnorm = 1.f;  // lane 0's quaternion norm
   float gpos[3] = {0.f, 0.f, 0.f};
   bool ok = true;
   if (active && lane < kVectors) {
     const size_t i = static_cast<size_t>(row) * kVectors + lane;
     g = grad[i];
+    p = feats[i];
     if (scale != nullptr) {
       const float4 s = scale[lane], m = band_mask[lane];
       const float4 d =
@@ -132,6 +159,13 @@ __global__ void __launch_bounds__(kBlock) optimizer_update_kernel(
       g.y = g.y * s.y * m.y + d.y;
       g.z = g.z * s.z * m.z + d.z;
       g.w = g.w * s.w * m.w + d.w;
+    }
+    if (lane == 0) {  // the gradient with respect to q / |q|, contained
+      qnorm = quaternion_norm(p);
+      g.x = g.x * qnorm;
+      g.y = g.y * qnorm;
+      g.z = g.z * qnorm;
+      g.w = g.w * qnorm;
     }
     ok = finite4(g);
   } else if (active && lane == kPositionLane) {
@@ -148,7 +182,13 @@ __global__ void __launch_bounds__(kBlock) optimizer_update_kernel(
   if (active && lane < kVectors) {
     if (!feat_ok) g = make_float4(0.f, 0.f, 0.f, 0.f);
     const size_t i = static_cast<size_t>(row) * kVectors + lane;
-    float4 p = feats[i], m = mu_f[i], v = nu_f[i];
+    float4 m = mu_f[i], v = nu_f[i];
+    if (lane == 0) {  // Adam's parameter q / |q|, while the moments load
+      p.x = over_norm(p.x, qnorm);
+      p.y = over_norm(p.y, qnorm);
+      p.z = over_norm(p.z, qnorm);
+      p.w = over_norm(p.w, qnorm);
+    }
     const Scalars s = scalars(gf);
     adam(g.x, p.x, m.x, v.x, gf, s, loss_ok);
     adam(g.y, p.y, m.y, v.y, gf, s, loss_ok);

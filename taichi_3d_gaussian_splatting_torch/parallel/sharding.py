@@ -111,17 +111,16 @@ def make_data_parallel_train_step(mesh: Mesh, camera_info: CameraInfo,
         first = mesh.rank * per_rank
         dev = scene.point_cloud.device
         scale, band_mask = train_step.constants(dev, sh_band)
-        feats = steps.normalize_quaternions(scene.point_cloud_features)
 
         grad_pc = torch.zeros_like(scene.point_cloud)
-        grad_feats = torch.zeros_like(feats)
+        grad_feats = torch.zeros_like(scene.point_cloud_features)
         ctrl = ctrl_state
         float_sums, count_sums = [], []
         for i in range(first, first + per_rank):
             cam = dataclasses.replace(camera_info,
                                       camera_intrinsics=intrinsics[i])
             view = steps.view_gradients(
-                scene, feats, images[i], qs[i], ts[i], cam,
+                scene, images[i], qs[i], ts[i], cam,
                 train_step.raster_config, train_step.loss_fn, scale,
                 band_mask, mark)
             with span("accumulate", mark):
@@ -172,7 +171,7 @@ def make_data_parallel_train_step(mesh: Mesh, camera_info: CameraInfo,
         # statistics were taken above, from each view's raw gradient
         with span("adam", mark):
             new = train_step.update(scene, opt_feat, opt_pos, ctrl_state,
-                                    feats, grad_feats, grad_pc, loss_mean,
+                                    grad_feats, grad_pc, loss_mean,
                                     lambda _: ctrl)
 
         zero = torch.zeros((), dtype=torch.int32, device=dev)

@@ -1,14 +1,21 @@
 """The optimizer step of training in one pass: the feature gradients'
-combination, the containment of non-finite gradient rows, both Adam
-chains and the loss guard, as one CUDA kernel (`csrc/optimizer_update.cu`)
-behind `optimizer_update`, which every training step calls
-(`training/step.py::TrainStep.update`).
+combination, the quaternions' normalization, the containment of
+non-finite gradient rows, both Adam chains and the loss guard, as one CUDA
+kernel (`csrc/optimizer_update.cu`) behind `optimizer_update`, which every
+training step calls (`training/step.py::TrainStep.update`).
 
-`optimizer_update_torch` is its plain version: `contain_gradients`, two
-`adam_update`s (`AdamGroup`) and `keep_if_ok`. CPU tensors take it; CUDA
-tensors launch the kernel or raise; any other device raises. There is no
-fallback. The kernel rounds as the plain version's torch ops do on the
-card, so the two agree bit for bit there.
+The step takes the stored features as they are, quaternions unnormalized:
+the projection normalizes each quaternion where it reads it, with the norm
+held constant, so its gradient is the one with respect to q / |q| divided
+by |q|. The update normalizes q, multiplies the quaternion's gradient
+columns by the same floored norm and takes Adam on q / |q|
+(`normalize_quaternions`), so that no step copies the (N, 56) features.
+
+`optimizer_update_torch` is its plain version: `normalize_quaternions`,
+`contain_gradients`, two `adam_update`s (`AdamGroup`) and `keep_if_ok`.
+CPU tensors take it; CUDA tensors launch the kernel or raise; any other
+device raises. There is no fallback. The kernel rounds as the plain
+version's torch ops do on the card, so the two agree bit for bit there.
 
 Outputs are new tensors: nothing is modified in place.
 """
@@ -47,6 +54,25 @@ def combine_feature_gradients(grad_feats_raster, grad_scale, band_mask,
     return scaled + (0.0 if grad_feats_direct is None else grad_feats_direct)
 
 
+def normalize_quaternions(feats, grad_feats):
+    """(features, gradient) with each slot's quaternion q (columns 0-3)
+    divided by its norm and the quaternion's gradient columns multiplied by
+    it: the gradient with respect to q with the norm held constant becomes
+    the one with respect to q / |q|. The squares are summed in the order
+    q0, q1, q2, q3, as the kernel sums them, and the norm is floored at
+    1e-12, so that an all-zero slot of the pool stays 0. The square root
+    is taken in float64 and rounded once to float32, which is the
+    correctly rounded float32 root on every device, as the kernel's
+    `sqrtf`: torch's vectorized float32 `sqrt` on the CPU is not (it
+    misses by an ulp on some 0.6% of inputs)."""
+    q = feats[:, 0:4]
+    squares = (q[:, 0:1] * q[:, 0:1] + q[:, 1:2] * q[:, 1:2]
+               + q[:, 2:3] * q[:, 2:3] + q[:, 3:4] * q[:, 3:4])
+    norm = torch.clamp(torch.sqrt(squares.double()).float(), min=1e-12)
+    return (torch.cat([q / norm, feats[:, 4:]], dim=1),
+            torch.cat([grad_feats[:, 0:4] * norm, grad_feats[:, 4:]], dim=1))
+
+
 def contain_gradients(grad_pc, grad_feats):
     """Zero the non-finite gradient rows (a culled degenerate splat's VJP
     can still give 0 * inf = NaN), so that one point cannot poison its Adam
@@ -76,6 +102,7 @@ def optimizer_update_torch(feats, grad_feats, pc, grad_pc,
     if grad_scale is not None:
         grad_feats = combine_feature_gradients(grad_feats, grad_scale,
                                                band_mask, grad_feats_direct)
+    feats, grad_feats = normalize_quaternions(feats, grad_feats)
     grad_pc, grad_feats, nonfinite_grad_rows = contain_gradients(grad_pc,
                                                                  grad_feats)
     new_feats, opt_f = features(feats, grad_feats, opt_features)
@@ -159,13 +186,17 @@ def optimizer_update(feats, grad_feats, pc, grad_pc,
     positions (N, 3) at `positions`) under the loss guard `loss_ok` (0-d
     bool).
 
-    With `grad_scale` and `band_mask` (56,), `grad_feats` is the
-    rasterizer path's raw gradient and the step's is
+    `feats` are the stored features, and the gradients are with respect to
+    them with each quaternion's norm held constant, as the projection
+    gives them. With `grad_scale` and `band_mask` (56,), `grad_feats` is
+    the rasterizer path's raw gradient and the step's is
     `combine_feature_gradients(grad_feats, grad_scale, band_mask,
-    grad_feats_direct)`; without them `grad_feats` is taken as it is.
-    Non-finite gradient rows are zeroed (`contain_gradients`); a non-finite
-    loss leaves parameters and moments as they were and the counts
-    untaken.
+    grad_feats_direct)`; without them `grad_feats` is taken as it is (a
+    batch step's sum). Then `normalize_quaternions`: Adam's parameter is
+    q / |q| with the gradient with respect to it. Non-finite gradient rows
+    are zeroed (`contain_gradients`); a non-finite loss leaves the features
+    as they were with their quaternions normalized, the positions and
+    moments as they were and the counts untaken.
 
     CPU tensors take `optimizer_update_torch`; CUDA tensors launch the
     kernel; any other device raises."""

@@ -2,9 +2,9 @@
 (`parallel/sharding.py`) both take it.
 
 A step on one view (`view_gradients`):
-- re-normalize the stored quaternions (outside autograd);
-- render with `rasterize_with_vjp` (projection, binning, the forward blend
-  kernel);
+- render the stored features with `rasterize_with_vjp` (projection,
+  binning, the forward blend kernel); the projection normalizes each
+  quaternion where it reads it, so no step copies the features;
 - L1 + SSIM on the image clipped to [0, 1] and their gradient with
   respect to the render, `training/loss_cuda.py::image_loss` (one kernel
   on the card), plus the scale regularizer by autograd when it is on;
@@ -17,9 +17,11 @@ The update that ends every step (`TrainStep.update`, in the span `adam`):
 non-finite gradient rows are zeroed, and a non-finite loss skips the whole
 update (Adam moments and controller statistics included); two Adam chains:
 features at the features group's rate, positions at the positions group's
-scheduled rate. The scaling and masking, the containment, both chains and
-the loss guard are one call, `training/adam_cuda.py::optimizer_update`
-(one kernel on the card).
+scheduled rate. The stored quaternions are normalized there, and Adam
+takes q / |q| with the gradient with respect to it. The scaling and
+masking, the normalization, the containment, both chains and the loss
+guard are one call, `training/adam_cuda.py::optimizer_update` (one kernel
+on the card).
 
 The single-view step hands that call the raw rasterizer-path gradient with
 its group scale and band mask, so that the kernel combines them in its one
@@ -57,14 +59,6 @@ def grad_group_scale(config: RasterizerConfig) -> np.ndarray:
     return scale
 
 
-def normalize_quaternions(feats: torch.Tensor) -> torch.Tensor:
-    """The features with each stored quaternion normalized; the norm is
-    floored so that an all-zero padding slot stays 0."""
-    qnorm = feats[:, 0:4] / torch.clamp(torch.linalg.norm(
-        feats[:, 0:4], dim=1, keepdim=True), min=1e-12)
-    return torch.cat([qnorm, feats[:, 4:]], dim=1)
-
-
 class ViewGradients(NamedTuple):
     """One view's loss and raw gradients (`view_gradients`)."""
     loss: torch.Tensor           # () detached
@@ -90,24 +84,26 @@ class ViewGradients(NamedTuple):
             self.grad_feats_direct)
 
 
-def view_gradients(scene, feats, image_gt, q, t, camera_info, raster_config,
+def view_gradients(scene, image_gt, q, t, camera_info, raster_config,
                    loss_fn, grad_scale, band_mask,
                    mark=_no_mark) -> ViewGradients:
-    """Render one view with `feats` (quaternions normalized), take the loss
+    """Render one view of `scene` with its stored features, take the loss
     on the image clipped to [0, 1] and its gradient with respect to the
     render (`image_loss`) and, by autograd, the regularizer's with respect
     to the features when it is on, then the rasterizer's VJP. The
-    rasterizer-path feature gradients are scaled per group and masked to
-    the active SH bands; the regularizer's are added unscaled."""
-    result, vjp_fn = rasterize_with_vjp(
-        scene.point_cloud, feats, scene.point_invalid_mask,
-        scene.point_object_id, q, t, camera_info, raster_config, mark=mark)
+    quaternion's gradients are with respect to the stored quaternion with
+    its norm held constant. The rasterizer-path feature gradients are
+    scaled per group and masked to the active SH bands; the regularizer's
+    are added unscaled."""
+    result, vjp_fn = rasterize_with_vjp(*scene, q, t, camera_info,
+                                        raster_config, mark=mark)
     with span("loss", mark):
         terms = image_loss(result.image, image_gt,
                            loss_fn.config.lambda_value)
         loss, g_feats_direct = terms.loss, None
         if loss_fn.config.enable_regularization:
-            feats_leaf = feats.detach().requires_grad_(True)
+            feats_leaf = scene.point_cloud_features.detach().requires_grad_(
+                True)
             with torch.enable_grad():
                 reg = loss_fn.regularization_term(scene.point_invalid_mask,
                                                   feats_leaf)
@@ -157,22 +153,22 @@ class TrainStep:
                 feature_sh_band_mask(sh_band, device=device))
         return self._constants[key]
 
-    def update(self, scene, opt_features, opt_positions, ctrl_state, feats,
+    def update(self, scene, opt_features, opt_positions, ctrl_state,
                grad_feats, grad_pc, loss,
                with_stats: Callable[[torch.Tensor], ControllerState],
                grad_scale=None, band_mask=None,
                grad_feats_direct=None) -> Updated:
         """The update that ends a step (its caller's span `adam`): the loss
-        guard, `optimizer_update` of both groups from `feats` and the
-        scene's positions, and the controller state `with_stats(the
+        guard, `optimizer_update` of both groups from the scene's stored
+        features and positions, and the controller state `with_stats(the
         contained position gradient)` kept only where `loss` is finite.
         `grad_scale`, `band_mask` and `grad_feats_direct` as
         `optimizer_update` takes them."""
         loss_ok = torch.isfinite(loss)
         up = optimizer_update(
-            feats, grad_feats, scene.point_cloud, grad_pc, opt_features,
-            opt_positions, self.features, self.positions, loss_ok,
-            grad_scale, band_mask, grad_feats_direct)
+            scene.point_cloud_features, grad_feats, scene.point_cloud,
+            grad_pc, opt_features, opt_positions, self.features,
+            self.positions, loss_ok, grad_scale, band_mask, grad_feats_direct)
         scene = scene._replace(point_cloud=up.pc,
                                point_cloud_features=up.feats)
         ctrl = keep_if_ok(loss_ok, with_stats(up.grad_pc), ctrl_state)
@@ -191,15 +187,14 @@ class TrainStep:
         `mark(stage)` is called after each stage (those of
         `rasterize_with_vjp`, "loss" and "adam"); each stage is a span of
         that name."""
-        feats = normalize_quaternions(scene.point_cloud_features)
-        scale, band_mask = self.constants(feats.device, sh_band)
-        view = view_gradients(scene, feats, image_gt, q, t, camera_info,
+        scale, band_mask = self.constants(scene.device, sh_band)
+        view = view_gradients(scene, image_gt, q, t, camera_info,
                               self.raster_config, self.loss_fn, scale,
                               band_mask, mark)
         aux = view.result.aux
         with span("adam", mark):
             new = self.update(
-                scene, opt_features, opt_positions, ctrl_state, feats,
+                scene, opt_features, opt_positions, ctrl_state,
                 view.grad_feats_raster, view.grad_pc, view.loss,
                 lambda grad_pc: update_stats(ctrl_state, view.stats, grad_pc,
                                              aux.in_frustum),

@@ -34,9 +34,10 @@ from torch_chunk_fixtures import (BOUNDARY_OFFSET, NUM_TILES, TILES_PER_ROW,
 from torch_port_fixtures import (AB_CASES, ATOL, RTOL, assert_counts_close,
                                  camera_intrinsics, identity_pose,
                                  random_scene)
-from torch_train_fixtures import (OPTIMIZER_CASES, assert_bitwise_equal,
-                                  batch_step_state, config_dict, loss_images,
-                                  one_step_state, optimizer_inputs,
+from torch_train_fixtures import (OPTIMIZER_CASES, RAW_QUATERNION_CASES,
+                                  assert_bitwise_equal, batch_step_state,
+                                  config_dict, loss_images, one_step_state,
+                                  optimizer_inputs, raw_quaternion_inputs,
                                   write_dataset)
 
 pytestmark = pytest.mark.cuda
@@ -383,6 +384,26 @@ def test_optimizer_kernel_matches_plain(cuda, case, n):
     c = OPTIMIZER_CASES[case]
     assert (int(want.nonfinite_grad_rows) > 0) == bool(
         c.get("bad_feats") or c.get("bad_pc"))
+
+
+@pytest.mark.parametrize("case", list(RAW_QUATERNION_CASES))
+def test_optimizer_kernel_matches_plain_on_stored_quaternions(cuda, case):
+    """The optimizer kernel bit for bit equal to its plain version on the
+    card on stored quaternions at norms from 1e-3 to 1e3 (the cases of
+    test_optimizer_update_on_stored_quaternions_matches_the_parent), and on
+    a few stored quaternions that are not finite: the normalization in the
+    kernel's registers rounds as the plain version's torch ops do, and a
+    slot whose norm is not finite has its feature gradient row zeroed."""
+    (args, kwargs), _ = raw_quaternion_inputs(case, 1_000_003, cuda,
+                                              seed=17)
+    feats = args[0]
+    feats[10::100_000, 0] = float("nan")
+    feats[20::100_000, 1] = float("inf")
+    feats[30::100_000, 3] = float("-inf")
+    got = TA.optimizer_update(*args, **kwargs)
+    want = TA.optimizer_update_torch(*args, **kwargs)
+    assert_bitwise_equal(tuple(got), tuple(want), case)
+    assert int(want.nonfinite_grad_rows) >= 30
 
 
 def test_optimizer_kernel_launches_once_a_step(cuda, tmp_path):

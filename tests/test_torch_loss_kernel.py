@@ -182,17 +182,17 @@ def test_plain_version_is_the_replaced_chain(h, w):
     assert_bitwise_equal(tuple(got), want[:5])
 
 
-def _parent_view_gradients(scene, feats, image_gt, q, t, camera_info,
+def _parent_view_gradients(scene, image_gt, q, t, camera_info,
                            raster_config, loss_fn, grad_scale, band_mask,
                            mark=TSTEP._no_mark):
     """step.view_gradients with the loss stage it had before
     image_loss."""
     result, vjp_fn = TSTEP.rasterize_with_vjp(
-        scene.point_cloud, feats, scene.point_invalid_mask,
-        scene.point_object_id, q, t, camera_info, raster_config, mark=mark)
+        *scene, q, t, camera_info, raster_config, mark=mark)
     with TSTEP.span("loss", mark):
         loss, l1, ld_ssim, g_image, img, g_feats_direct = _todays_loss_stage(
-            result.image, image_gt, loss_fn, scene.point_invalid_mask, feats)
+            result.image, image_gt, loss_fn, scene.point_invalid_mask,
+            scene.point_cloud_features)
     grad_pc, grad_feats_raster, stats = vjp_fn(g_image)
     return TSTEP.ViewGradients(loss, l1, ld_ssim, img, grad_pc,
                                grad_feats_raster, g_feats_direct, grad_scale,

@@ -44,10 +44,14 @@ from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
 from taichi_3d_gaussian_splatting_torch.training import step as TSTEP
 from taichi_3d_gaussian_splatting_torch.training.adam import (
     adam_state_from_optax, adam_update)
+from taichi_3d_gaussian_splatting_torch.training.adam_cuda import (
+    combine_feature_gradients)
 
-from torch_train_fixtures import (OPTIMIZER_CASES, assert_bitwise_equal,
-                                  batch_step_state, config_dict,
-                                  optimizer_inputs, write_dataset)
+from torch_train_fixtures import (OPTIMIZER_CASES, RAW_QUATERNION_CASES,
+                                  SH_BAND, assert_bitwise_equal,
+                                  batch_step_state, batch_views, config_dict,
+                                  optimizer_inputs, parent_normalize,
+                                  raw_quaternion_inputs, write_dataset)
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -469,15 +473,37 @@ def _parent_chain(feats, grad_feats, pc, grad_pc, opt_f, opt_p, features,
         keep(new_p, opt_p), grad_pc, nonfinite_grad_rows)
 
 
+def _normalizing_chain(feats, grad_feats, *args, grad_scale=None,
+                       band_mask=None, grad_feats_direct=None):
+    """_parent_chain on the stored features, as the steps hand them now:
+    the features' combination line, then each quaternion divided by its
+    norm and its gradient columns multiplied by it (the squares summed q0
+    to q3, the root correctly rounded, the norm floored at 1e-12), then the
+    chain in its batch form."""
+    if grad_scale is not None:
+        grad_feats = combine_feature_gradients(grad_feats, grad_scale,
+                                               band_mask, grad_feats_direct)
+    q = feats[:, 0:4]
+    norm = torch.clamp(torch.sqrt((
+        q[:, 0:1] * q[:, 0:1] + q[:, 1:2] * q[:, 1:2]
+        + q[:, 2:3] * q[:, 2:3] + q[:, 3:4] * q[:, 3:4]).double()).float(),
+        min=1e-12)
+    return _parent_chain(
+        torch.cat([q / norm, feats[:, 4:]], dim=1),
+        torch.cat([grad_feats[:, 0:4] * norm, grad_feats[:, 4:]], dim=1),
+        *args)
+
+
 @pytest.mark.parametrize("case", list(OPTIMIZER_CASES))
 def test_optimizer_update_matches_the_parent_chain(case):
     """optimizer_update on the CPU (its plain version) bit for bit equal to
-    the chain it replaced, case by case: non-finite feature and position
+    the chain it replaced with the quaternions' normalization moved in
+    (_normalizing_chain), case by case: non-finite feature and position
     rows, a non-finite loss, the learning-rate decay past its interval, the
     batch-scaled betas, SH bands 0 and 3, a direct gradient, the batch form
     without scale or mask. The CPU launches no kernel."""
     args, kwargs = optimizer_inputs(case, 257, "cpu", seed=3)
-    want = _parent_chain(*args, **kwargs)
+    want = _normalizing_chain(*args, **kwargs)
     before = dict(_build.launch_counts)
     for fn in (TA.optimizer_update, TA.optimizer_update_torch):
         assert_bitwise_equal(tuple(fn(*args, **kwargs)), tuple(want), case)
@@ -489,6 +515,49 @@ def test_optimizer_update_matches_the_parent_chain(case):
     start = c.get("count", 0)
     assert counts == ((start, start) if c.get("loss_ok") is False
                       else (start + 1, start + 1))
+
+
+@pytest.mark.parametrize("case", list(RAW_QUATERNION_CASES))
+def test_optimizer_update_on_stored_quaternions_matches_the_parent(case):
+    """optimizer_update_torch on the stored features, quaternions at norms
+    from 1e-3 to 1e3 and their gradients divided by the norm as the
+    projection's backward now gives them, against the parent's chain on the
+    normalized copy (parent_normalize) with the gradients with respect to
+    it: the features and their moments within a few float32 spacings, at
+    rtol 1e-6 and an atol of 1e-6 times the field's largest magnitude (a
+    moment's sum that cancels keeps its terms' absolute error); all-zero
+    pool rows stay 0; a non-finite loss leaves the normalized quaternion in
+    the stored row; the positions, the zeroed rows and the counts equal."""
+    (args, kwargs), (p_args, p_kwargs) = raw_quaternion_inputs(
+        case, 257, "cpu", seed=11)
+    got = TA.optimizer_update_torch(*args, **kwargs)
+    want = _parent_chain(*p_args, **p_kwargs)
+    for name, g, w in (("features", got.feats, want.feats),
+                       ("feature mu", got.opt_features.mu,
+                        want.opt_features.mu),
+                       ("feature nu", got.opt_features.nu,
+                        want.opt_features.nu)):
+        np.testing.assert_allclose(
+            g.numpy(), w.numpy(), rtol=1e-6,
+            atol=1e-6 * float(w.abs().max()), err_msg=f"{case} {name}")
+    assert_bitwise_equal((got.pc, got.opt_positions, got.grad_pc,
+                          got.nonfinite_grad_rows, got.opt_features.count),
+                         (want.pc, want.opt_positions, want.grad_pc,
+                          want.nonfinite_grad_rows, want.opt_features.count),
+                         case)
+    c = RAW_QUATERNION_CASES[case]
+    stored_q, new_q = args[0][:, 0:4], got.feats[:, 0:4]
+    if c.get("empty"):
+        half = args[0].shape[0] // 2
+        assert not bool(stored_q[half:].any())
+        for t in (got.feats, *got.opt_features[:2]):
+            assert not bool(t[half:].any()), case
+    if c.get("loss_ok") is False:
+        assert_bitwise_equal(got.opt_features, tuple(args[4]), case)
+        np.testing.assert_allclose(new_q.numpy(), p_args[0][:, 0:4].numpy(),
+                                   rtol=1e-6, atol=0)
+        assert not torch.allclose(new_q, stored_q)
+        assert_bitwise_equal(got.feats[:, 4:], args[0][:, 4:], case)
 
 
 def _single_steps(root, steps=2):
@@ -514,8 +583,9 @@ def _single_steps(root, steps=2):
 
 def test_steps_match_the_parent_chain(tmp_path, monkeypatch):
     """Two trainer steps and two batch steps on the CPU leave the same
-    state, bit for bit, as with the chain optimizer_update replaced, patched
-    in once, where both steps take it: once a step in each."""
+    state, bit for bit, as with the chain optimizer_update replaced
+    (_normalizing_chain), patched in once, where both steps take it: once a
+    step in each."""
     write_dataset(str(tmp_path))
     root = str(tmp_path)
     single = _single_steps(root)
@@ -524,7 +594,7 @@ def test_steps_match_the_parent_chain(tmp_path, monkeypatch):
 
     def chain(*args, **kwargs):
         calls.append(len(calls))
-        return _parent_chain(*args, **kwargs)
+        return _normalizing_chain(*args, **kwargs)
 
     with monkeypatch.context() as m:
         m.setattr(TSTEP, "optimizer_update", chain)
@@ -539,3 +609,97 @@ def test_steps_match_the_parent_chain(tmp_path, monkeypatch):
         for k in want:
             assert_bitwise_equal(torch.as_tensor(got[k]),
                                  torch.as_tensor(want[k]), k)
+
+
+def _trainer(root, form, scale_quaternions=False):
+    """The port's trainer on the CPU for a single-view or a batch step,
+    anisotropic scales as in one_step_state; with `scale_quaternions`,
+    each stored quaternion multiplied by a norm drawn log-uniform from 1e-3
+    to 1e3."""
+    over = {"batch_size": 2} if form == "batch" else {}
+    trainer = TT.GaussianPointCloudTrainer(
+        tconfig.from_dict(TT.TrainConfig, config_dict(root, **over)),
+        device="cpu")
+    feats = trainer.scene.point_cloud_features.numpy().copy()
+    rng = np.random.default_rng(5)
+    feats[:, 4:7] += rng.uniform(-0.5, 0.5, (feats.shape[0], 3))
+    if scale_quaternions:
+        feats[:, 0:4] *= 10.0 ** rng.uniform(-3, 3, (feats.shape[0], 1))
+    trainer.scene = trainer.scene._replace(
+        point_cloud_features=torch.as_tensor(feats.astype(np.float32)))
+    return trainer
+
+
+def _take_step(trainer, form, k=0):
+    """One single-view step on view k, or one batch step on views k and
+    k + 1."""
+    if form == "batch":
+        images, qs, ts, intrs, cam = batch_views(trainer, [k, (k + 1) % 3])
+        return trainer.batch_step(images, qs, ts, intrs, SH_BAND, cam)
+    item = trainer.train_dataset[k]
+    return trainer.step(torch.as_tensor(item.image),
+                        torch.as_tensor(item.q_pointcloud_camera),
+                        torch.as_tensor(item.t_pointcloud_camera), SH_BAND,
+                        item.camera_info)
+
+
+@pytest.mark.parametrize("form", ["single", "batch"])
+def test_steps_read_the_stored_features(tmp_path, monkeypatch, form):
+    """Neither the single-view step nor the batch step copies the features:
+    the tensor that reaches rasterize_with_vjp (once a view) and
+    optimizer_update (once a step) is the scene's stored
+    point_cloud_features itself, step after step."""
+    write_dataset(str(tmp_path))
+    trainer = _trainer(str(tmp_path), form)
+    seen = []
+    raster, update = TSTEP.rasterize_with_vjp, TSTEP.optimizer_update
+
+    def seen_raster(pc, feats, *args, **kwargs):
+        seen.append(("raster", feats.data_ptr()))
+        return raster(pc, feats, *args, **kwargs)
+
+    def seen_update(feats, *args, **kwargs):
+        seen.append(("update", feats.data_ptr()))
+        return update(feats, *args, **kwargs)
+
+    monkeypatch.setattr(TSTEP, "rasterize_with_vjp", seen_raster)
+    monkeypatch.setattr(TSTEP, "optimizer_update", seen_update)
+    views = 2 if form == "batch" else 1
+    for k in range(2):
+        stored = trainer.scene.point_cloud_features.data_ptr()
+        seen.clear()
+        _take_step(trainer, form, k)
+        assert seen == [("raster", stored)] * views + [("update", stored)]
+        assert trainer.scene.point_cloud_features.data_ptr() != stored
+    trainer.logger.close()
+
+
+@pytest.mark.parametrize("form", ["single", "batch"])
+def test_steps_on_unnormalized_quaternions(tmp_path, form):
+    """Two steps from a scene whose stored quaternions have norms from 1e-3
+    to 1e3 leave the state of two steps from the same scene with its
+    quaternions normalized: the projection normalizes where it reads, the
+    update where it writes. The losses to 1e-5 relative; every state array
+    at rtol 1e-4 and an atol of 1e-5 times its largest magnitude, as
+    test_trainer_step_matches_jax holds the port to JAX."""
+    write_dataset(str(tmp_path))
+    raw = _trainer(str(tmp_path), form, scale_quaternions=True)
+    unit = _trainer(str(tmp_path), form, scale_quaternions=True)
+    unit.scene = unit.scene._replace(point_cloud_features=parent_normalize(
+        unit.scene.point_cloud_features))
+    q = raw.scene.point_cloud_features[:, 0:4].norm(dim=1)
+    assert float(q.min()) < 1e-2 and float(q.max()) > 1e2
+    for k in range(2):
+        losses = [float(_take_step(t, form, k).metrics["loss"])
+                  for t in (raw, unit)]
+        assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    got, want = (dict(t.state_arrays()) for t in (raw, unit))
+    for t in (raw, unit):
+        t.logger.close()
+    for k, w in want.items():
+        if k.endswith("generator"):
+            continue
+        w = np.asarray(w, np.float64)
+        scale = max(np.abs(w).max(), 1e-30)
+        np.testing.assert_allclose(np.asarray(got[k], np.float64), w,
+                                   rtol=1e-4, atol=1e-5 * scale, err_msg=k)

@@ -197,18 +197,19 @@ OPTIMIZER_CASES = {
 
 
 def optimizer_inputs(case, n, device, seed=0):
-    """(args, kwargs) of optimizer_update for OPTIMIZER_CASES[case] at `n`
-    slots, drawn on `device` from `seed`: moments from an
-    earlier update, gradients with exact and negative zeros, and, where the
-    case asks, NaN and inf in feature rows (one in an inactive SH column,
-    where the band mask's 0 turns it into NaN) and position rows, the first
-    and last slots among them; with `empty`, the second half of the slots
-    all zero (parameters, gradients and moments), as the pool's free slots
-    are, the last quarter -0.0."""
+    """(args, kwargs) of optimizer_update for OPTIMIZER_CASES[case] (or
+    `case` itself, a dict of the same keys) at `n` slots, drawn on `device`
+    from `seed`: moments from an earlier update, gradients with exact and
+    negative zeros, and, where the case asks, NaN and inf in feature rows
+    (one in an inactive SH column, where the band mask's 0 turns it into
+    NaN) and position rows, the first and last slots among them; with
+    `empty`, the second half of the slots all zero (parameters, gradients,
+    the direct gradient and moments), as the pool's free slots are, the
+    last quarter -0.0."""
     from taichi_3d_gaussian_splatting_torch.ops.sh import feature_sh_band_mask
     from taichi_3d_gaussian_splatting_torch.training.adam import (
         AdamGroup, AdamState, exponential_decay_lr)
-    c = dict(OPTIMIZER_CASES[case])
+    c = dict(OPTIMIZER_CASES[case] if isinstance(case, str) else case)
     device = torch.device(device)
     gen = torch.Generator(device).manual_seed(seed)
 
@@ -251,10 +252,80 @@ def optimizer_inputs(case, n, device, seed=0):
                   "band_mask": feature_sh_band_mask(c.get("band", 1),
                                                     device=device)}
         if c.get("direct"):
-            kwargs["grad_feats_direct"] = normal(n, 56, scale=1e-4)
+            kwargs["grad_feats_direct"] = direct = normal(n, 56, scale=1e-4)
+            if c.get("empty"):
+                direct[n // 2:] = 0.0
+                direct[3 * n // 4:] = -0.0
     loss_ok = torch.tensor(c.get("loss_ok", True), device=device)
     return ([feats, grad_feats, pc, grad_pc, opt_f, opt_p, *groups,
              loss_ok], kwargs)
+
+
+# The cases of optimizer_update on the stored, unnormalized quaternions:
+# the step's form (single view with a direct gradient, or batch), each
+# slot's quaternion norm (None: log-uniform from 1e-3 to 1e3 across the
+# slots) and what else changes, as in OPTIMIZER_CASES.
+RAW_QUATERNION_CASES = {
+    f"{form}_{name}": dict(over, batch=form == "batch",
+                           direct=form == "single")
+    for form in ("single", "batch")
+    for name, over in (("norm_1e-3", {"norm": 1e-3}),
+                       ("norm_1", {"norm": 1.0}),
+                       ("norm_1e3", {"norm": 1e3}),
+                       ("norms_spread", {"norm": None}),
+                       ("zero_rows", {"norm": None, "empty": True,
+                                      "count": 7}),
+                       ("loss_not_finite", {"norm": None, "loss_ok": False,
+                                            "bad_feats": True}))}
+
+
+def parent_normalize(feats):
+    """The features with each quaternion normalized as the steps did before
+    the update took the stored features (copied): the norm floored so that
+    an all-zero slot stays 0."""
+    q = feats[:, 0:4] / torch.clamp(torch.linalg.norm(
+        feats[:, 0:4], dim=1, keepdim=True), min=1e-12)
+    return torch.cat([q, feats[:, 4:]], dim=1)
+
+
+def raw_quaternion_inputs(case, n, device, seed=0):
+    """((args, kwargs) on the stored features, (args, kwargs) as the parent
+    handed them) of optimizer_update for RAW_QUATERNION_CASES[case] at `n`
+    slots. Both hold one set of quaternions, some with exact zeros among
+    their components: stored at the case's norms, and
+    normalized by `parent_normalize` for the parent, with the gradients of
+    optimizer_inputs taken as the ones with respect to the normalized value.
+    The stored form's quaternion gradient columns (and the direct
+    gradient's) are those divided by the norm, as the projection's backward
+    gives them: times the inverse square root of the squared norm floored at
+    1e-24."""
+    c = dict(RAW_QUATERNION_CASES[case])
+    norm = c.pop("norm")
+    args, kwargs = optimizer_inputs(c, n, device, seed)
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    norms = (10.0 ** (torch.rand((n, 1), generator=gen, device=device) * 6.0
+                      - 3.0) if norm is None
+             else torch.full((n, 1), norm, device=device))
+    feats = args[0]
+    stored = torch.cat([parent_normalize(feats)[:, 0:4] * norms,
+                        feats[:, 4:]], dim=1)
+    # exact zeros inside nonzero quaternions, as an initial (0, 0, 0, 1) has
+    stored[3::7, 0:3] = 0.0
+    stored[5::11, 1] = -0.0
+    q = stored[:, 0:4]
+    inv = torch.rsqrt(torch.clamp((q * q).sum(dim=1, keepdim=True),
+                                  min=1e-24))
+
+    def wrt_stored(g):
+        return torch.cat([g[:, 0:4] * inv, g[:, 4:]], dim=1)
+
+    raw_kwargs = dict(kwargs)
+    if "grad_feats_direct" in kwargs:
+        raw_kwargs["grad_feats_direct"] = wrt_stored(
+            kwargs["grad_feats_direct"])
+    return (([stored, wrt_stored(args[1]), *args[2:]], raw_kwargs),
+            ([parent_normalize(stored), *args[1:]], kwargs))
 
 
 def assert_bitwise_equal(got, want, what=""):
