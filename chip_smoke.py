@@ -56,6 +56,11 @@ Phases (any failure exits non-zero; nothing is caught):
      second call bit for bit; its device time by the profiler, a call's
      by CUDA events, the plain version's, the bounds by bytes and by
      operations;
+  3f. the batch step's accumulation kernel (csrc/accumulate_view.cu)
+     against its plain version on the card at 4,160,000 slots, a first
+     and a later view (accumulate_phase): the sums bit for bit, then a
+     call's time (20 calls by CUDA events) and the plain version's, its
+     bytes, its bound at 3.35 TB/s and its share of the bound;
   5. training path: a 4-view 976x544 dataset rendered by the port from the
      430k scene, an init parquet of its jittered positions, and the port's
      `GaussianPointCloudTrainer(...).train()` for 30 iterations with
@@ -694,6 +699,9 @@ def batch_train_phase(paths, root, card, fail):
         if min(launches["blend_forward"], launches["blend_backward"]) < views:
             fail(f"batch training did not launch K2 and K3 once per view "
                  f"({views} views): {launches}")
+        if launches["accumulate_view"] != views:
+            fail(f"batch training did not launch the accumulation kernel "
+                 f"once per view ({views} views): {launches}")
         check_projection_launches(launches, "batch training", fail)
         check_loss_launches(launches, "batch training", fail)
         losses, psnr = check_run(logs, BATCH_ITERATIONS, fail)
@@ -1066,6 +1074,67 @@ def optimizer_phase(card, fail):
             if n == OPTIMIZER_SLOTS[0] and case == "finite":
                 out = (k_ms, p_ms, bound)
             del args, kwargs, got, want
+    return out
+
+
+# phase 3f: the batch step's accumulation kernel. It replaces no Pallas
+# kernel: the JAX package's batch step sums the views' gradients inside one
+# jitted function.
+ACCUMULATE_SOURCE = (
+    "taichi_3d_gaussian_splatting_torch/csrc/accumulate_view.cu")
+# bytes a slot a view, by whether the view is the first: the view's feature
+# (224) and position (12) gradients in and both sums out; a later view
+# reads the sums too
+ACCUMULATE_BYTES = {True: 2 * 236, False: 3 * 236}
+# the 2.08M cells' slot pool
+ACCUMULATE_SLOTS = 4_160_000
+
+
+def accumulate_phase(card, fail):
+    """Phase 3f: the accumulation kernel against its plain version on the
+    card at ACCUMULATE_SLOTS, a first view and a later one, without a
+    direct gradient (the cells' form): the sums bit for bit, then a call's
+    time (20 calls by CUDA events) and the plain version's (5 calls),
+    beside the bound by bytes. Returns {"first"|"later": (ms, plain ms,
+    bound ms)}."""
+    import torch
+    from torch_train_fixtures import accumulate_inputs, assert_bitwise_equal
+    from taichi_3d_gaussian_splatting_torch.training import adam_cuda as TA
+    n = ACCUMULATE_SLOTS
+    views, scale, mask = accumulate_inputs(n, "cuda", seed=23, band=3,
+                                           views=2)
+    got = (torch.empty((n, 56), device="cuda"),
+           torch.empty((n, 3), device="cuda"))
+    want = tuple(torch.empty_like(t) for t in got)
+    out = {}
+    for k, form in enumerate(("first", "later")):
+        first = k == 0
+        args = (views[k][0], views[k][1], scale, mask)
+        before = launch_counts["accumulate_view"]
+        TA.accumulate_view_gradients(*got, *args, first=first)
+        torch.cuda.synchronize()
+        if launch_counts["accumulate_view"] != before + 1:
+            fail("accumulation kernel: not one launch a call")
+        TA.accumulate_view_gradients_torch(*want, *args, first=first)
+        try:
+            assert_bitwise_equal(got, want, f"{form} view")
+        except AssertionError as e:
+            fail(f"accumulation kernel at {n} slots: {e}")
+        # the sums as they stand after this view, for the timed calls
+        sums = tuple(t.clone() for t in got)
+        k_ms = time_ms(lambda: TA.accumulate_view_gradients(
+            *sums, *args, first=first), 20)
+        p_ms = time_ms(lambda: TA.accumulate_view_gradients_torch(
+            *sums, *args, first=first), 5, warmup=1)
+        bound = n * ACCUMULATE_BYTES[first] / PEAK_BYTES_PER_S * 1e3
+        print(f"accumulation kernel, {form} view at {n} slots: bitwise "
+              f"equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"{n * ACCUMULATE_BYTES[first]} bytes "
+              f"({ACCUMULATE_BYTES[first]} a slot), bound {bound:.4f} ms at "
+              f"3.35 TB/s ({100.0 * bound / k_ms:.1f}% of it) ({card})",
+              flush=True)
+        out[form] = (k_ms, p_ms, bound)
+        del sums
     return out
 
 
@@ -1526,8 +1595,8 @@ def bench_phase(phase4_ms, fail):
 def check_training_launches(label, fail):
     """Every kernel of the training path launched since the last reset,
     P1 once per frame, P2 and the optimizer kernel once per single-view
-    step, the image loss kernel once per training and validation view;
-    returns the counts."""
+    step, the batch step's accumulation kernel never, the image loss
+    kernel once per training and validation view; returns the counts."""
     launches = launch_counts.copy()
     if min(launches["blend_forward"], launches["blend_backward"]) < 1:
         fail(f"{label}: a kernel of the training path was never launched: "
@@ -1536,6 +1605,9 @@ def check_training_launches(label, fail):
     if launches["optimizer_update"] != launches["blend_backward"]:
         fail(f"{label}: the optimizer kernel did not launch once per step: "
              f"{launches}")
+    if launches["accumulate_view"]:
+        fail(f"{label}: a single-view step launched the batch step's "
+             f"accumulation kernel: {launches}")
     check_loss_launches(launches, label, fail)
     return launches
 
@@ -2841,6 +2913,9 @@ def main():
     # ---- 3d. the optimizer kernel vs its plain version on the card -----
     opt_ms, opt_plain, opt_bound = optimizer_phase(card, fail)
 
+    # ---- 3f. the accumulation kernel vs its plain version on the card --
+    acc = accumulate_phase(card, fail)
+
     # ---- 3e. the image loss kernel vs its plain version on the card ----
     loss_ms, loss_plain, loss_bound, loss_by, loss_err = image_loss_phase(
         card, fail)
@@ -2959,7 +3034,7 @@ def main():
         os.makedirs(small)
         step_cuda_vs_cpu(small, fail)
         # ---- 6. batch training, 6b. the batch step card vs cpu ---------
-        batch_train_phase(paths, tmp, card, fail)
+        batch_launches = batch_train_phase(paths, tmp, card, fail)
         small_batch = os.path.join(tmp, "small_batch")
         os.makedirs(small_batch)
         batch_step_cuda_vs_cpu(small_batch, fail)
@@ -3018,6 +3093,13 @@ def main():
                     "launches": train_launches["optimizer_update"],
                     "max_abs_err": 0.0, "ms": opt_ms, "plain_ms": opt_plain,
                     "bound_ms": opt_bound, "bound_by": "bytes",
+                    "library_ms": None})
+    kernels.append({"name": "accumulate_view", "route": "cuda",
+                    "source": ACCUMULATE_SOURCE, "replaces": None,
+                    "launches": batch_launches["accumulate_view"],
+                    "max_abs_err": 0.0, "ms": acc["later"][0],
+                    "plain_ms": acc["later"][1],
+                    "bound_ms": acc["later"][2], "bound_by": "bytes",
                     "library_ms": None})
     kernels.append({"name": "image_loss", "route": "cuda",
                     "source": IMAGE_LOSS_SOURCE, "replaces": None,

@@ -37,13 +37,15 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of single sources: the projection and optimizer kernels round every
-# product and sum on its own, as the plain versions' torch ops do (no
-# contraction into fused multiply-adds), so that their masks match them
-# exactly and the optimizer's update bit for bit
+# flags of single sources: the projection, optimizer and accumulation
+# kernels round every product and sum on its own, as the plain versions'
+# torch ops do (no contraction into fused multiply-adds), so that their
+# masks match them exactly and the optimizer's update and the batch step's
+# sums bit for bit
 SOURCE_FLAGS = {"projection_forward.cu": ("-fmad=false",),
                 "projection_backward.cu": ("-fmad=false",),
-                "optimizer_update.cu": ("-fmad=false",)}
+                "optimizer_update.cu": ("-fmad=false",),
+                "accumulate_view.cu": ("-fmad=false",)}
 
 _library = None
 # what ptxas reported (registers, shared memory, spills) for the last build
@@ -106,6 +108,10 @@ def _declare(lib):
     # nonfinite, stream
     group = ctypes.POINTER(AdamGroupArgs)
     fn.argtypes = [i] + [p] * 11 + [group, group] + [p] * 10
+    fn.restype = i
+    fn = lib.t3dgs_accumulate_view
+    # n, grad, direct, scale, band_mask, grad_pc, first, sum_f, sum_p, stream
+    fn.argtypes = [i, p, p, p, p, p, i, p, p, p]
     fn.restype = i
     fn = lib.t3dgs_image_loss
     # render, gt, h, w, c_l1, c_ssim, one_minus_lambda, lambda, grad,

@@ -31,6 +31,7 @@ import torch.distributed as dist
 from ..camera import CameraInfo
 from ..ops.rasterizer import BackwardStats, _no_mark
 from ..training import step as steps
+from ..training.adam_cuda import accumulate_view_gradients
 from ..training.controller import ControllerState, update_stats
 from ..training.ssim import psnr as psnr_fn
 from ..utils.profiling import span
@@ -86,8 +87,9 @@ def make_data_parallel_train_step(mesh: Mesh, camera_info: CameraInfo,
     (pred (H, W, 3), depth (H, W), valid count (H, W) float) of that view.
     `mark(stage)` is called after each stage of each view (those of
     `rasterize_with_vjp`, "loss" and "accumulate": the controller
-    statistics and the running sums), after "allreduce" and after
-    "adam"; each stage is a span of that name (`utils/profiling.py`).
+    statistics and the running sums, `accumulate_view_gradients`, one
+    kernel a view on the card), after "allreduce" and after "adam"; each
+    stage is a span of that name (`utils/profiling.py`).
     """
 
     def all_sum(x):
@@ -112,8 +114,10 @@ def make_data_parallel_train_step(mesh: Mesh, camera_info: CameraInfo,
         dev = scene.point_cloud.device
         scale, band_mask = train_step.constants(dev, sh_band)
 
-        grad_pc = torch.zeros_like(scene.point_cloud)
-        grad_feats = torch.zeros_like(scene.point_cloud_features)
+        # the running sums, written whole by the rank's first view
+        grad_pc, grad_feats = (
+            torch.empty_like(x, memory_format=torch.contiguous_format)
+            for x in (scene.point_cloud, scene.point_cloud_features))
         ctrl = ctrl_state
         float_sums, count_sums = [], []
         for i in range(first, first + per_rank):
@@ -128,8 +132,10 @@ def make_data_parallel_train_step(mesh: Mesh, camera_info: CameraInfo,
                 # the controller takes each view's raw position gradient
                 ctrl = update_stats(ctrl, view.stats, view.grad_pc,
                                     aux.in_frustum)
-                grad_pc = grad_pc + view.grad_pc
-                grad_feats = grad_feats + view.grad_feats
+                accumulate_view_gradients(
+                    grad_feats, grad_pc, view.grad_feats_raster,
+                    view.grad_pc, scale, band_mask, view.grad_feats_direct,
+                    first=i == first)
                 float_sums.append(torch.stack([
                     view.loss, view.l1, view.ssim_loss,
                     psnr_fn(view.image, images[i])]))

@@ -17,7 +17,14 @@ CPU tensors take it; CUDA tensors launch the kernel or raise; any other
 device raises. There is no fallback. The kernel rounds as the plain
 version's torch ops do on the card, so the two agree bit for bit there.
 
-Outputs are new tensors: nothing is modified in place.
+The optimizer's outputs are new tensors: nothing is modified in place.
+
+The batch step's running sums (`parallel/sharding.py`) take one view at a
+time through `accumulate_view_gradients`: the view's feature gradients
+combined as `combine_feature_gradients` combines them and added into the
+feature sum, its position gradient into the position sum, in place, as one
+CUDA kernel (`csrc/accumulate_view.cu`) on the card; its plain version,
+`accumulate_view_gradients_torch`, is the torch chain, to the same bits.
 """
 
 from __future__ import annotations
@@ -52,6 +59,74 @@ def combine_feature_gradients(grad_feats_raster, grad_scale, band_mask,
     adding zeros gives)."""
     scaled = grad_feats_raster * grad_scale * band_mask
     return scaled + (0.0 if grad_feats_direct is None else grad_feats_direct)
+
+
+def accumulate_view_gradients_torch(sum_feats, sum_pc, grad_feats_raster,
+                                    grad_pc, grad_scale, band_mask,
+                                    grad_feats_direct=None, first=False):
+    """The plain version of `accumulate_view_gradients`: the sums zeroed on
+    the first view, then the view's combined feature gradients and its
+    position gradient added."""
+    grad_feats = combine_feature_gradients(grad_feats_raster, grad_scale,
+                                           band_mask, grad_feats_direct)
+    if first:
+        sum_feats.zero_()
+        sum_pc.zero_()
+    sum_feats.add_(grad_feats)
+    sum_pc.add_(grad_pc)
+    return sum_feats, sum_pc
+
+
+def accumulate_view_gradients(sum_feats, sum_pc, grad_feats_raster, grad_pc,
+                              grad_scale, band_mask, grad_feats_direct=None,
+                              first=False):
+    """Add one view's gradients into a batch step's running sums, in place:
+    `sum_feats` (N, 56) += `combine_feature_gradients(grad_feats_raster,
+    grad_scale, band_mask, grad_feats_direct)`, `sum_pc` (N, 3) +=
+    `grad_pc`; on the `first` view the sums are taken as zeros and not read
+    (they may come from `torch.empty`). Every value is rounded as the chain
+    of torch ops rounds it (zeros, the combination, the two sums), so the
+    sums are bit for bit the same on either path. Returns (sum_feats,
+    sum_pc).
+
+    CPU tensors take `accumulate_view_gradients_torch`; CUDA tensors launch
+    the kernel (the sums must be contiguous, `sum_feats` 16-byte aligned);
+    any other device raises."""
+    n = sum_feats.shape[0]
+    shapes = [("sum_feats", sum_feats, (n, NUM_FEATURES)),
+              ("sum_pc", sum_pc, (n, 3)),
+              ("grad_feats_raster", grad_feats_raster, (n, NUM_FEATURES)),
+              ("grad_pc", grad_pc, (n, 3)),
+              ("grad_scale", grad_scale, (NUM_FEATURES,)),
+              ("band_mask", band_mask, (NUM_FEATURES,))]
+    if grad_feats_direct is not None:
+        shapes.append(("grad_feats_direct", grad_feats_direct,
+                       (n, NUM_FEATURES)))
+    for name, t, shape in shapes:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != sum_feats.device:
+            raise ValueError(f"{name} is on {t.device}, sum_feats on "
+                             f"{sum_feats.device}")
+    if not on_card(sum_feats, "accumulate_view_gradients"):
+        return accumulate_view_gradients_torch(
+            sum_feats, sum_pc, grad_feats_raster, grad_pc, grad_scale,
+            band_mask, grad_feats_direct, first)
+    if not (sum_feats.is_contiguous() and sum_pc.is_contiguous()
+            and sum_feats.data_ptr() % 16 == 0):
+        raise ValueError("the sums are written in place: they must be "
+                         "contiguous, sum_feats 16-byte aligned")
+    grad, scale, mask = (_aligned(t) for t in (grad_feats_raster, grad_scale,
+                                               band_mask))
+    direct = None if grad_feats_direct is None else _aligned(
+        grad_feats_direct)
+    grad_pc = grad_pc.contiguous()
+    launch("accumulate_view", n, grad.data_ptr(),
+           None if direct is None else direct.data_ptr(), scale.data_ptr(),
+           mask.data_ptr(), grad_pc.data_ptr(), int(first),
+           sum_feats.data_ptr(), sum_pc.data_ptr(), device=sum_feats.device)
+    return sum_feats, sum_pc
 
 
 def normalize_quaternions(feats, grad_feats):

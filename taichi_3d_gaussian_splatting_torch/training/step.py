@@ -25,7 +25,9 @@ on the card).
 
 The single-view step hands that call the raw rasterizer-path gradient with
 its group scale and band mask, so that the kernel combines them in its one
-pass; the batch step combines each view's gradient and sums them first.
+pass; the batch step combines each view's gradient and adds it into its
+running sums first (`accumulate_view_gradients`, one kernel a view on the
+card).
 """
 
 from __future__ import annotations

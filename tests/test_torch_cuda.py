@@ -1,6 +1,6 @@
 """The CUDA blend kernels (forward and backward), projection kernels
-(P1, P2), optimizer kernel and image loss kernel against their plain
-PyTorch versions on the card; one training step, two batch steps and the viewer's frames on the
+(P1, P2), optimizer kernel, batch accumulation kernel and image loss
+kernel against their plain PyTorch versions on the card; one training step, two batch steps and the viewer's frames on the
 card against the same on the CPU.
 
 Marked `cuda`: skips without a card. Run on a machine with an H100 as
@@ -35,8 +35,9 @@ from torch_port_fixtures import (AB_CASES, ATOL, RTOL, assert_counts_close,
                                  camera_intrinsics, identity_pose,
                                  random_scene)
 from torch_train_fixtures import (OPTIMIZER_CASES, RAW_QUATERNION_CASES,
-                                  assert_bitwise_equal, batch_step_state,
-                                  config_dict, loss_images, one_step_state,
+                                  accumulate_inputs, assert_bitwise_equal,
+                                  batch_step_state, batch_views, config_dict,
+                                  loss_images, one_step_state,
                                   optimizer_inputs, raw_quaternion_inputs,
                                   write_dataset)
 
@@ -415,6 +416,59 @@ def test_optimizer_kernel_launches_once_a_step(cuda, tmp_path):
     assert _build.launch_counts["optimizer_update"] == before + 1
     batch_step_state(cuda, str(tmp_path))
     assert _build.launch_counts["optimizer_update"] == before + 3
+
+
+@pytest.mark.parametrize("band", [0, 3])
+@pytest.mark.parametrize("direct", [False, True],
+                         ids=["no_direct", "direct"])
+@pytest.mark.parametrize("n", [1, 13, 4097, 1_000_003])
+def test_accumulate_view_kernel_matches_plain(cuda, n, direct, band):
+    """The accumulation kernel's running sums bit for bit the plain
+    version's on the card after each of 4 views (the first view and later
+    ones, B = 1 to 4), from sums that start as NaN: slot counts whose
+    vectors end inside the kernel's last block and its unrolled stride,
+    negative zeros, NaN and infinite rows, with and without a direct
+    gradient, SH bands 0 and 3; one launch a view."""
+    views, scale, mask = accumulate_inputs(n, cuda, seed=n + band,
+                                           band=band, direct=direct)
+    got = (torch.full((n, 56), float("nan"), device=cuda),
+           torch.full((n, 3), float("nan"), device=cuda))
+    want = tuple(torch.full_like(t, float("nan")) for t in got)
+    for k, (raster, g_pc, d) in enumerate(views):
+        before = _build.launch_counts["accumulate_view"]
+        TA.accumulate_view_gradients(*got, raster, g_pc, scale, mask, d,
+                                     first=k == 0)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["accumulate_view"] == before + 1
+        TA.accumulate_view_gradients_torch(*want, raster, g_pc, scale, mask,
+                                           d, first=k == 0)
+        assert_bitwise_equal(got, want, f"view {k}")
+
+
+def test_accumulate_view_launches_once_a_view(cuda, tmp_path):
+    """One accumulation kernel launch a view of a batch step (one batch
+    step of 4 views: 4), none in a single-view step."""
+    from taichi_3d_gaussian_splatting_torch import config as tconfig
+    from taichi_3d_gaussian_splatting_torch.training import trainer as TT
+    write_dataset(str(tmp_path))
+    before = _build.launch_counts.copy()
+    one_step_state(str(tmp_path), "cuda")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["accumulate_view"] == before[
+        "accumulate_view"]
+    trainer = TT.GaussianPointCloudTrainer(
+        tconfig.from_dict(TT.TrainConfig,
+                          config_dict(str(tmp_path), batch_size=4)),
+        device="cuda")
+    images, qs, ts, intrs, cam = batch_views(trainer, [0, 1, 2, 0])
+    before = _build.launch_counts.copy()
+    trainer.batch_step(images, qs, ts, intrs, 1, cam)
+    torch.cuda.synchronize()
+    trainer.logger.close()
+    assert _build.launch_counts["accumulate_view"] - before[
+        "accumulate_view"] == 4
+    assert _build.launch_counts["blend_backward"] - before[
+        "blend_backward"] == 4
 
 
 @pytest.mark.parametrize("h, w", [(544, 976), (45, 77)])

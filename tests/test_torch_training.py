@@ -48,10 +48,11 @@ from taichi_3d_gaussian_splatting_torch.training.adam_cuda import (
     combine_feature_gradients)
 
 from torch_train_fixtures import (OPTIMIZER_CASES, RAW_QUATERNION_CASES,
-                                  SH_BAND, assert_bitwise_equal,
-                                  batch_step_state, batch_views, config_dict,
-                                  optimizer_inputs, parent_normalize,
-                                  raw_quaternion_inputs, write_dataset)
+                                  SH_BAND, accumulate_inputs,
+                                  assert_bitwise_equal, batch_step_state,
+                                  batch_views, config_dict, optimizer_inputs,
+                                  parent_normalize, raw_quaternion_inputs,
+                                  write_dataset)
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -609,6 +610,54 @@ def test_steps_match_the_parent_chain(tmp_path, monkeypatch):
         for k in want:
             assert_bitwise_equal(torch.as_tensor(got[k]),
                                  torch.as_tensor(want[k]), k)
+
+
+def _parent_sums(views, grad_scale, band_mask):
+    """The batch step's running sums as it took them before one call held
+    a view's part (copied): zeros_like, then for each view the combination
+    line and the two sums."""
+    grad_pc = torch.zeros_like(views[0][1])
+    grad_feats = torch.zeros_like(views[0][0])
+    out = []
+    for raster, g_pc, direct in views:
+        combined = raster * grad_scale * band_mask + (
+            0.0 if direct is None else direct)
+        grad_pc = grad_pc + g_pc
+        grad_feats = grad_feats + combined
+        out.append((grad_feats, grad_pc))
+    return out
+
+
+@pytest.mark.parametrize("band", [0, 3])
+@pytest.mark.parametrize("direct", [False, True],
+                         ids=["no_direct", "direct"])
+def test_accumulate_view_gradients_matches_the_parent_chain(direct, band):
+    """accumulate_view_gradients on the CPU (its plain version) over 1 to 4
+    views leaves the sums of the parent's chain (_parent_sums) bit for bit
+    after each view, from sums that start as NaN (the first view does not
+    read them): negative zeros, NaN and infinite rows, with and without a
+    direct gradient, SH bands 0 and 3. The sums are updated in place and
+    the CPU launches no kernel."""
+    views, scale, mask = accumulate_inputs(4097, "cpu", seed=band + 2,
+                                           band=band, direct=direct)
+    want = _parent_sums(views, scale, mask)
+    before = dict(_build.launch_counts)
+    for fn in (TA.accumulate_view_gradients,
+               TA.accumulate_view_gradients_torch):
+        sums = (torch.full((4097, 56), float("nan")),
+                torch.full((4097, 3), float("nan")))
+        for k, (raster, g_pc, d) in enumerate(views):
+            got = fn(*sums, raster, g_pc, scale, mask, d, first=k == 0)
+            assert got[0] is sums[0] and got[1] is sums[1]
+            assert_bitwise_equal(got, want[k], f"{fn.__name__}, view {k}")
+    assert _build.launch_counts == before
+    feats, pc = want[-1]
+    assert not bool(torch.isfinite(feats).all())
+    assert not bool(torch.isfinite(pc).all())
+    zeros = want[0][0][1::7]    # the -0.0 rows, where no value is bad
+    zeros = zeros[torch.isfinite(zeros)]
+    assert zeros.numel() > 0 and bool((zeros == 0).all())
+    assert not bool(torch.signbit(zeros).any())
 
 
 def _trainer(root, form, scale_quaternions=False):

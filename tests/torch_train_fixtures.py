@@ -261,6 +261,51 @@ def optimizer_inputs(case, n, device, seed=0):
              loss_ok], kwargs)
 
 
+def accumulate_inputs(n, device, seed=0, band=1, direct=False, views=4):
+    """(views, grad_scale, band_mask) of a batch step's running sums
+    (accumulate_view_gradients) at `n` slots, drawn on `device` from
+    `seed`: `views` tuples (grad_feats_raster (n, 56), grad_pc (n, 3),
+    grad_feats_direct (n, 56) or None) with exact and negative zeros, rows
+    of -0.0 in every array (a first view's sum of them is +0.0), and NaN,
+    +inf and -inf in the first, the last and a few other slots of each view
+    (one +inf in an inactive SH column of band 0, where the band mask's 0
+    turns it into NaN); the group scale of optimizer_inputs and the band
+    mask of SH band `band`."""
+    from taichi_3d_gaussian_splatting_torch.ops.sh import feature_sh_band_mask
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def normal(*shape, scale):
+        g = torch.randn(shape, generator=gen, device=device) * scale
+        g[torch.rand(shape, generator=gen, device=device) < 0.05] = 0.0
+        g[torch.rand(shape, generator=gen, device=device) < 0.05] = -0.0
+        return g
+
+    out = []
+    for _ in range(views):
+        raster, grad_pc = normal(n, 56, scale=1e-2), normal(n, 3, scale=1e-3)
+        d = normal(n, 56, scale=1e-4) if direct else None
+        for t in (raster, grad_pc, d):
+            if t is not None:
+                t[1::7] = -0.0
+        bad = torch.unique(torch.cat([
+            torch.tensor([0, n - 1], device=device),
+            torch.randint(0, n, (max(n // 100, 1),), generator=gen,
+                          device=device)]))
+        raster[bad[::2], 5] = float("nan")
+        raster[bad[1::2], 55] = float("inf")
+        raster[bad[::3], 10] = float("-inf")
+        grad_pc[bad[1::3], 1] = float("-inf")
+        grad_pc[bad[::3], 2] = float("nan")
+        if d is not None:
+            d[bad[::4], 30] = float("inf")
+        out.append((raster, grad_pc, d))
+    scale = torch.full((56,), 0.75, device=device)
+    scale[0:4], scale[4:7], scale[7] = 1.0, 0.5, 20.0
+    scale[[8, 24, 40]] = 5.0
+    return out, scale, feature_sh_band_mask(band, device=device)
+
+
 # The cases of optimizer_update on the stored, unnormalized quaternions:
 # the step's form (single view with a direct gradient, or batch), each
 # slot's quaternion norm (None: log-uniform from 1e-3 to 1e3 across the
